@@ -1,0 +1,53 @@
+"""grape_vector_db_tpu_torch — the PyTorch + CUDA port of grape_vector_db_tpu.
+
+The JAX package beside it is the reference; this package keeps its module
+paths and public names so each module's counterpart is easy to find. It
+imports ``torch`` and numpy and never JAX. Device arrays live on an explicit
+``device`` (default ``"cuda"``); the CPU tests pass ``device="cpu"``.
+
+Ported so far: the exact flat search path — ``VectorDatabase`` over the
+memory store with a ``FlatDeviceIndex``, whose large-corpus search runs the
+hand-written segment top-k CUDA kernels (``ops/segmax.py``,
+``csrc/segmax.cu``). ROADMAP.md lists what is still to be ported.
+"""
+
+from grape_vector_db_tpu_torch.config import VectorDbConfig, load_config
+from grape_vector_db_tpu_torch.db import DatabaseStats, VectorDatabase
+from grape_vector_db_tpu_torch.errors import VectorDbError
+from grape_vector_db_tpu_torch.types import (
+    Condition,
+    Document,
+    Filter,
+    FusionStrategy,
+    FusionWeights,
+    HybridSearchRequest,
+    Point,
+    ScoredPoint,
+    SearchParams,
+    SearchRequest,
+    SearchResult,
+    SparseVector,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "VectorDatabase",
+    "DatabaseStats",
+    "VectorDbConfig",
+    "load_config",
+    "Document",
+    "Point",
+    "SparseVector",
+    "SearchParams",
+    "SearchRequest",
+    "SearchResult",
+    "ScoredPoint",
+    "HybridSearchRequest",
+    "FusionStrategy",
+    "FusionWeights",
+    "Filter",
+    "Condition",
+    "VectorDbError",
+    "__version__",
+]

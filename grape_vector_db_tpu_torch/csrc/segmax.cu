@@ -1,0 +1,278 @@
+// Segment top-j kernels for the exact large-corpus flat search (Hopper, sm_90a).
+//
+// Replaces the Pallas TPU kernels of grape_vector_db_tpu/ops/segmax_pallas.py:
+//   TOPJ = 4: _segmax4_kernel (fold _segmax4_core), wrapper segmax4_scores_pallas
+//   TOPJ = 2: _segmax2_kernel ("eqfold"),           wrapper segmax2_scores_pallas
+// and is bound to PyTorch through a plain C interface (ctypes) by
+// grape_vector_db_tpu_torch/ops/segmax.py, which also holds the plain PyTorch
+// version of the same contract (segmax4_scores_ref / segmax2_scores_ref).
+//
+// Contract. For query b and corpus row r:
+//   s[b, r] = dot(q[b], v[r]) * w[r]   (f32 accumulation; q already in the
+//             storage type), and s = -inf where w[r] == 0 (select, not add).
+// Segments are strided and block-major: segment g = blk * 128 + j holds rows
+// blk * 4096 + j + 128 * m for members m < 32. Per (b, g) the kernel emits the
+// TOPJ largest of the 32 scores (a multiset, -inf included) and the member
+// index m of ranks 1 .. TOPJ-1, where members are ordered by (score
+// descending, m ascending) -- the rule the Pallas "eqfold" recovery gives,
+// including ties and all -inf segments (which yield m = 0, 1, 2).
+//
+// What bounds it on an H100. At B = 128 and a 1,048,576 x 768 bf16 corpus the
+// corpus read is 1.6 GB (about 0.5 ms at 3.35 TB/s) and the products are
+// 2 * 128 * 1M * 768 = 0.2 TFLOP: a few ms on CUDA-core FMA, a fraction of a
+// ms on the tensor cores. The [B, N] score plane (512 MB) is the traffic the
+// fusion removes: it never leaves the SM, only the 32x smaller top-j planes
+// are written.
+//
+// Design. One thread block takes 32 queries x one 4096-row corpus block. The
+// 32 members of the block's 128 segments are 32 contiguous 128-row chunks
+// (member m of segment j is row 128 * m + j), so the block walks m = 0..31,
+// computes the [32 x 128] score tile of chunk m with K-tiles staged in shared
+// memory (bf16: mma.sync m16n8k16 with f32 accumulation; f32 storage: FMA in
+// full f32), and folds each score into a per-(query, segment) top-j list kept
+// in registers (values, plus the member indices packed into one word).
+// Members arrive in ascending m, so a stable insertion that places a new
+// score below equal ones gives the (score desc, m asc) order with no index
+// bookkeeping beyond the list itself. The tile layout is the
+// mma accumulator layout, so the two storage types share the epilogue.
+// Blocks for the same corpus block are adjacent in the grid (queries on x),
+// so the extra query tiles at B > 32 mostly re-read the corpus from L2.
+// As written the kernel reaches neither bound: a block stages each K-tile
+// with plain loads between two barriers, so it waits on memory; two blocks
+// per SM (bf16, 128 registers) hide part of that wait. Later work: cp.async
+// or TMA double buffering, wgmma, a persistent grid.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int SEG = 32;        // members per segment
+constexpr int SPB = 128;       // segments per corpus block
+constexpr int CB = SEG * SPB;  // rows per corpus block
+constexpr int BQ = 32;         // queries per thread block
+constexpr int THREADS = 256;   // 8 warps: 2 along queries x 4 along segments
+constexpr int TILE_BYTES = 256;  // bytes of each row staged per K-tile
+
+template <typename T>
+struct Tile {
+  static constexpr int KT = TILE_BYTES / sizeof(T);  // K-tile width
+  static constexpr int PAD = 16 / sizeof(T);         // 16 B row pad: no bank conflicts
+  static constexpr int LD = KT + PAD;
+  static constexpr int VEC = 16 / sizeof(T);         // elements per 16-byte load
+  static constexpr int VECS_PER_ROW = KT / VEC;
+  // bf16: cap registers at 128 a thread so two blocks share an SM (the
+  // kernel waits on its tile loads, and a second block hides that wait);
+  // the f32 path needs more registers for its FMA tile and keeps one.
+  static constexpr int MIN_BLOCKS = sizeof(T) == 2 ? 2 : 1;
+};
+
+__device__ __forceinline__ void mma_bf16_16x8x16(float (&c)[4], uint32_t a0, uint32_t a1,
+                                                 uint32_t a2, uint32_t a3, uint32_t b0,
+                                                 uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The [32 x 128] tile product of one K-tile. Thread (warp, lane) owns the
+// mma accumulator positions: query rows qa = wq*16 + g and qa + 8, segment
+// columns wj*32 + nt*8 + 2*t4 + {0, 1} for nt < 4.
+template <typename T>
+struct TileProduct;
+
+template <>
+struct TileProduct<__nv_bfloat16> {
+  using Cfg = Tile<__nv_bfloat16>;
+  __device__ __forceinline__ static void run(__nv_bfloat16 (*sq)[Cfg::LD],
+                                             __nv_bfloat16 (*sv)[Cfg::LD], int qa, int nb,
+                                             int g, int t4, float (&acc)[4][4]) {
+#pragma unroll
+    for (int kk = 0; kk < Cfg::KT; kk += 16) {
+      const int k = kk + 2 * t4;
+      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(&sq[qa][k]);
+      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(&sq[qa + 8][k]);
+      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(&sq[qa][k + 8]);
+      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(&sq[qa + 8][k + 8]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = nb + nt * 8 + g;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&sv[n][k]);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&sv[n][k + 8]);
+        mma_bf16_16x8x16(acc[nt], a0, a1, a2, a3, b0, b1);
+      }
+    }
+  }
+};
+
+template <>
+struct TileProduct<float> {
+  using Cfg = Tile<float>;
+  __device__ __forceinline__ static void run(float (*sq)[Cfg::LD],
+                                             float (*sv)[Cfg::LD], int qa, int nb,
+                                             int g, int t4, float (&acc)[4][4]) {
+    (void)g;
+#pragma unroll 8
+    for (int k = 0; k < Cfg::KT; ++k) {
+      const float xa = sq[qa][k];
+      const float xb = sq[qa + 8][k];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = nb + nt * 8 + 2 * t4;
+        const float y0 = sv[n][k];
+        const float y1 = sv[n + 1][k];
+        acc[nt][0] = fmaf(xa, y0, acc[nt][0]);
+        acc[nt][1] = fmaf(xa, y1, acc[nt][1]);
+        acc[nt][2] = fmaf(xb, y0, acc[nt][2]);
+        acc[nt][3] = fmaf(xb, y1, acc[nt][3]);
+      }
+    }
+  }
+};
+
+// Member indices of ranks 1 .. TOPJ-1 live packed in one word, IDX_BITS each
+// (m < 32): a (query, segment) list then costs TOPJ + 1 registers, not 2 * TOPJ.
+constexpr int IDX_BITS = 5;
+
+// Stable insertion of member m's score s into a descending top-TOPJ list.
+// Members arrive as m = 0, 1, 2, ..., so slots t >= m are still empty, and a
+// score goes below every equal score already listed (those have smaller m).
+template <int TOPJ>
+__device__ __forceinline__ void insert(float (&val)[TOPJ], uint32_t& idx, float s, int m) {
+  // pos: the slots that keep their place (filled, and s does not beat them).
+  // pos == TOPJ drops s; every update below is then a no-op, so the
+  // insertion needs no branch.
+  int pos = 0;
+#pragma unroll
+  for (int t = 0; t < TOPJ; ++t) pos += (m > t && !(s > val[t])) ? 1 : 0;
+#pragma unroll
+  for (int t = TOPJ - 1; t >= 1; --t) {
+    if (t > pos) val[t] = val[t - 1];
+    if (t == pos) val[t] = s;
+  }
+  if (pos == 0) val[0] = s;
+  constexpr uint32_t kMask = (1u << (IDX_BITS * (TOPJ - 1))) - 1u;
+  const int sh = IDX_BITS * pos;
+  const uint32_t keep = idx & ((1u << sh) - 1u);
+  const uint32_t moved = (idx << IDX_BITS) & ~((1u << (sh + IDX_BITS)) - 1u);
+  idx = (keep | (static_cast<uint32_t>(m) << sh) | moved) & kMask;
+}
+
+template <int TOPJ, typename T>
+__global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
+segmax_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ w,
+              float* __restrict__ out_m, int32_t* __restrict__ out_i, int B, int N, int D) {
+  using Cfg = Tile<T>;
+  __shared__ __align__(16) T sq[BQ][Cfg::LD];
+  __shared__ __align__(16) T sv[SPB][Cfg::LD];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int qa = (warp >> 2) * 16 + g;  // this thread's query rows: qa, qa + 8
+  const int nb = (warp & 3) * 32;       // this warp's first segment column
+  const int q0 = blockIdx.x * BQ;
+  const int blk = blockIdx.y;
+  const size_t nseg = (size_t)N / SEG;
+
+  float val[16][TOPJ];
+  uint32_t idx[16];
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    idx[p] = 0;
+#pragma unroll
+    for (int t = 0; t < TOPJ; ++t) val[p][t] = -INFINITY;
+  }
+
+  for (int m = 0; m < SEG; ++m) {
+    const size_t row0 = (size_t)blk * CB + (size_t)m * SPB;
+    float acc[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+    }
+    for (int k0 = 0; k0 < D; k0 += Cfg::KT) {
+      __syncthreads();  // the previous K-tile has been consumed
+      for (int i = tid; i < BQ * Cfg::VECS_PER_ROW; i += THREADS) {
+        const int r = i / Cfg::VECS_PER_ROW, cv = (i % Cfg::VECS_PER_ROW) * Cfg::VEC;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (q0 + r < B) x = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * D + k0 + cv);
+        *reinterpret_cast<uint4*>(&sq[r][cv]) = x;
+      }
+      for (int i = tid; i < SPB * Cfg::VECS_PER_ROW; i += THREADS) {
+        const int r = i / Cfg::VECS_PER_ROW, cv = (i % Cfg::VECS_PER_ROW) * Cfg::VEC;
+        *reinterpret_cast<uint4*>(&sv[r][cv]) =
+            *reinterpret_cast<const uint4*>(v + (row0 + r) * D + k0 + cv);
+      }
+      __syncthreads();
+      TileProduct<T>::run(sq, sv, qa, nb, g, t4, acc);
+    }
+    // epilogue: weight, mask and fold member m into each pair's list
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = nb + nt * 8 + 2 * t4 + (c & 1);
+        const float wr = __ldg(&w[row0 + j]);
+        const float s = (wr == 0.f) ? -INFINITY : acc[nt][c] * wr;
+        insert<TOPJ>(val[nt * 4 + c], idx[nt * 4 + c], s, m);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int b = q0 + qa + ((c >> 1) << 3);
+      if (b >= B) continue;
+      const size_t seg = (size_t)blk * SPB + nb + nt * 8 + 2 * t4 + (c & 1);
+      const int p = nt * 4 + c;
+#pragma unroll
+      for (int t = 0; t < TOPJ; ++t) out_m[((size_t)t * B + b) * nseg + seg] = val[p][t];
+#pragma unroll
+      for (int t = 0; t < TOPJ - 1; ++t)
+        out_i[((size_t)t * B + b) * nseg + seg] = (idx[p] >> (IDX_BITS * t)) & ((1u << IDX_BITS) - 1u);
+    }
+  }
+}
+
+template <int TOPJ, typename T>
+cudaError_t launch(const void* q, const void* v, const float* w, float* out_m, int32_t* out_i,
+                   int B, int N, int D, cudaStream_t stream) {
+  const dim3 grid((B + BQ - 1) / BQ, N / CB);
+  segmax_kernel<TOPJ, T><<<grid, THREADS, 0, stream>>>(static_cast<const T*>(q),
+                                                       static_cast<const T*>(v), w, out_m,
+                                                       out_i, B, N, D);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// topj: 4 or 2. dtype: 0 = bf16 storage, 1 = f32 storage. q [B, D] and
+// v [N, D] in the storage type, w [N] f32, out_m [topj, B, N/32] f32,
+// out_i [topj-1, B, N/32] int32, all contiguous, 16-byte aligned, on
+// `device`. Returns a cudaError_t (0 = launched).
+extern "C" int gvdb_segmax(int topj, int dtype, int device, const void* q, const void* v,
+                           const float* w, float* out_m, int32_t* out_i, int B, int N, int D,
+                           void* stream) {
+  if (B <= 0 || N <= 0 || N % CB != 0 || N / CB > 65535 || D <= 0 || D % 128 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (topj == 4 && dtype == 0) return (int)launch<4, __nv_bfloat16>(q, v, w, out_m, out_i, B, N, D, s);
+  if (topj == 4 && dtype == 1) return (int)launch<4, float>(q, v, w, out_m, out_i, B, N, D, s);
+  if (topj == 2 && dtype == 0) return (int)launch<2, __nv_bfloat16>(q, v, w, out_m, out_i, B, N, D, s);
+  if (topj == 2 && dtype == 1) return (int)launch<2, float>(q, v, w, out_m, out_i, B, N, D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* gvdb_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

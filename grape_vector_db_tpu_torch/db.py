@@ -1,0 +1,342 @@
+"""VectorDatabase — the library facade (reference src/lib.rs:233-788).
+
+PyTorch counterpart of ``grape_vector_db_tpu/db.py``. Owns the document store,
+the device index, the sparse index, and the unified query engine. Batch-first
+ingest (single add delegates to batch, lib.rs:309-356), fixed mutation order
+on delete (index before storage, lib.rs:380-390), and rebuild_index from
+stored documents (lib.rs:560-581).
+
+Ported so far: the flat index kind over the memory store, with ingest,
+search, delete, rebuild, stats and health. Every other index kind, the
+sharded kinds, the file store, index snapshots, backups, listing, tuning,
+pipelined ingest and the enterprise wrappers are still to be ported
+(ROADMAP.md, queue A).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from grape_vector_db_tpu_torch.config import VectorDbConfig
+from grape_vector_db_tpu_torch.engine.filtering import FilterEngine
+from grape_vector_db_tpu_torch.engine.hybrid import HybridSearchEngine
+from grape_vector_db_tpu_torch.engine.planner import QueryEngine
+from grape_vector_db_tpu_torch.engine.sparse import SparseIndex
+from grape_vector_db_tpu_torch.errors import InvalidArgumentError, StateError
+from grape_vector_db_tpu_torch.index import FlatDeviceIndex, VectorIndex
+from grape_vector_db_tpu_torch.services.embeddings import EmbeddingProvider, create_provider
+from grape_vector_db_tpu_torch.services.metrics import MetricsCollector
+from grape_vector_db_tpu_torch.storage import DocumentStore, MemoryDocumentStore
+from grape_vector_db_tpu_torch.types import (
+    Document,
+    DocumentRecord,
+    HybridSearchRequest,
+    ScoredPoint,
+    SearchRequest,
+    SearchResult,
+)
+
+__all__ = ["VectorDatabase", "DatabaseStats", "build_index"]
+
+
+@dataclass
+class DatabaseStats:
+    """embedded.rs DatabaseStats / lib.rs stats aggregation."""
+
+    document_count: int = 0
+    index_size: int = 0
+    index_kind: str = ""
+    index_memory_mb: float = 0.0
+    storage_size_bytes: int = 0
+    sparse_vocabulary: int = 0
+    cache_hit_rate: float = 0.0
+    uptime_s: float = 0.0
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+
+def build_index(config: VectorDbConfig, device: str | torch.device = "cuda") -> VectorIndex:
+    """The index for ``config`` on ``device``. Only ``kind="flat"`` is ported."""
+    kind = config.index.kind
+    if config.device.auto_shard and kind in ("flat", "ivf", "ivf_int8", "ivf_int4"):
+        raise InvalidArgumentError(
+            "auto_shard is not ported to the PyTorch package yet: the sharded "
+            "kinds wait for ROADMAP A.14 (parallel/mesh.py on torch.distributed)")
+    if kind == "flat":
+        return FlatDeviceIndex(
+            dimension=config.vector_dimension,
+            metric=config.distance,
+            storage_dtype=config.device.storage_dtype,
+            initial_capacity=config.index.initial_capacity,
+            growth_factor=config.device.growth_factor,
+            search_mode=config.device.search_mode,
+            device=device,
+        )
+    raise InvalidArgumentError(
+        f"index kind {kind!r} is not ported to the PyTorch package yet: only "
+        "'flat' is; the other kinds wait for ROADMAP A.7-A.14")
+
+
+def _stack_vectors(docs: Sequence[Document], dim: int) -> np.ndarray:
+    """[N, dim] f32 from per-doc vectors. ``Document.vector`` may be a numpy
+    array (the idiomatic way a Python caller holds embeddings) — that path
+    stacks without per-element conversion; Python lists pay the unavoidable
+    PyFloat->f32 walk."""
+    if isinstance(docs[0].vector, np.ndarray):
+        out = np.empty((len(docs), dim), np.float32)
+        for i, d in enumerate(docs):
+            v = d.vector
+            if isinstance(v, np.ndarray) and v.shape == (dim,):
+                out[i] = v
+            else:
+                out[i] = np.asarray(v, dtype=np.float32).reshape(dim)
+        return out
+    return np.asarray([d.vector for d in docs], dtype=np.float32)
+
+
+class VectorDatabase:
+    def __init__(
+        self,
+        path: Optional[str] = None,
+        config: Optional[VectorDbConfig] = None,
+        embedder: Optional[EmbeddingProvider] = None,
+        store: Optional[DocumentStore] = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.config = config or VectorDbConfig()
+        if self.config.embedding.dimension != self.config.vector_dimension:
+            self.config.embedding.dimension = self.config.vector_dimension
+        self.path = path
+        if store is not None:
+            self.store = store
+        elif path:
+            # needs msgpack + zstandard; still to be ported (ROADMAP)
+            from grape_vector_db_tpu_torch.storage.file import FileDocumentStore
+
+            self.store = FileDocumentStore(
+                os.path.join(path, "store"),
+                sync_writes=self.config.persistence.sync_writes,
+            )
+        else:
+            self.store = MemoryDocumentStore()
+        self.device = torch.device(device)
+        self.index = build_index(self.config, device=self.device)
+        self.sparse = SparseIndex(bm25=self.config.hybrid.bm25, config=self.config.sparse)
+        self.embedder = embedder or create_provider(self.config.embedding)
+        if self.config.cache.enabled:
+            from grape_vector_db_tpu_torch.engine.performance import CachingEmbedder
+
+            self.embedder = CachingEmbedder(
+                self.embedder,
+                cache_size=self.config.cache.embedding_cache_size,
+                ttl_s=self.config.cache.ttl_seconds,
+            )
+        self.metrics = MetricsCollector()
+        self.filter_engine = FilterEngine()
+        self.hybrid_engine = HybridSearchEngine(
+            self.index, self.sparse, self.store, self.config.hybrid
+        )
+        self.engine = QueryEngine(
+            self.index,
+            self.sparse,
+            self.store,
+            config=self.config.query,
+            metrics=self.metrics,
+            hybrid=self.hybrid_engine,
+            cache_size=self.config.cache.query_cache_size,
+            cache_ttl_s=self.config.cache.ttl_seconds,
+            enable_cache=self.config.cache.enabled,
+            filter_engine=self.filter_engine,
+        )
+        self._lock = threading.RLock()
+        # single worker carrying the BM25 phase of each ingest batch (see
+        # batch_add_documents); one thread keeps sparse updates ordered
+        self._sparse_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="gvdb-sparse")
+        self._closed = False
+        self._t0 = time.monotonic()
+        # Rebuild device state from the durable store on open.
+        if self.store.count():
+            self.rebuild_index()
+
+    # -- ingest (batch-first, lib.rs:309-356) -----------------------------------
+
+    def add_document(self, doc: Document) -> str:
+        return self.batch_add_documents([doc])[0]
+
+    def batch_add_documents(self, docs: Sequence[Document]) -> List[str]:
+        if self._closed:
+            raise StateError("database is closed")
+        if not docs:
+            return []
+        for d in docs:
+            if not d.id:
+                raise InvalidArgumentError("document id must be non-empty")
+        # Embed missing vectors in one provider batch. Providers with a
+        # batch-array path (mock) fill ndarray rows — no per-float boxing.
+        missing = [d for d in docs if d.vector is None]
+        dim = self.config.vector_dimension
+        embedded_all: Optional[np.ndarray] = None
+        if missing:
+            texts = [f"{d.title or ''} {d.content}".strip() for d in missing]
+            prov = self.embedder
+            arr_fn = getattr(prov, "embed_array", None) or getattr(
+                getattr(prov, "inner", None), "embed_array", None)
+            if arr_fn is not None:
+                arr = arr_fn(texts)
+                for d, row in zip(missing, arr):
+                    d.vector = row
+                if len(missing) == len(docs):
+                    # text-only batch: the embed output IS the batch matrix
+                    embedded_all = arr
+            else:
+                for d, e in zip(missing, self.embedder.generate_embeddings(texts)):
+                    d.vector = list(e)
+        if embedded_all is not None:
+            if embedded_all.shape[1] != dim:
+                raise InvalidArgumentError(
+                    f"embedder dim {embedded_all.shape[1]} != {dim}")
+        else:
+            for d in docs:
+                if len(d.vector) != dim:
+                    raise InvalidArgumentError(
+                        f"document {d.id}: vector dim {len(d.vector)} != {dim}"
+                    )
+        with self._lock:
+            ids = [d.id for d in docs]
+            # BM25 indexing overlaps the other host phases on a worker
+            # thread; joined before return, so BM25 reads its writes on
+            # return.
+            sparse_fut = self._sparse_pool.submit(
+                self.sparse.add_documents,
+                ids, [f"{d.title or ''} {d.content}".strip() for d in docs],
+            )
+            err: Optional[BaseException] = None
+            try:
+                records = [DocumentRecord.from_document(d) for d in docs]
+                self.store.batch_insert(records)
+                vecs = (embedded_all if embedded_all is not None
+                        else _stack_vectors(docs, dim))
+                self.index.add_batch(ids, vecs)
+                self.filter_engine.index_documents(
+                    (d.id, d.metadata) for d in docs)
+            except BaseException as e:
+                err = e
+            try:
+                sparse_fut.result()
+            except BaseException as e:
+                if err is None:
+                    err = e
+            if err is not None:
+                raise err
+            self.engine.invalidate_cache()
+            self.metrics.record_insert(len(docs))
+            return ids
+
+    # -- point ops ----------------------------------------------------------------
+
+    def get_document(self, id_: str) -> Optional[Document]:
+        rec = self.store.get(id_)
+        return rec.to_document() if rec else None
+
+    def delete_document(self, id_: str) -> bool:
+        return self.batch_delete_documents([id_]) == 1
+
+    def batch_delete_documents(self, ids: Sequence[str]) -> int:
+        with self._lock:
+            # Fixed order: index first, then storage (lib.rs:380-390).
+            self.index.remove_batch(ids)
+            for i in ids:
+                self.sparse.remove_document(i)
+                self.filter_engine.remove_document(i)
+            n = self.store.batch_delete(ids)
+            self.engine.invalidate_cache()
+            self.metrics.record_delete(n)
+            return n
+
+    # -- search ---------------------------------------------------------------------
+
+    def search(self, req: SearchRequest) -> List[SearchResult]:
+        if req.vector is None and req.query:
+            req.vector = self.embedder.generate_embedding(req.query)
+        return self.engine.search(req)
+
+    def vector_search(self, req: SearchRequest) -> List[ScoredPoint]:
+        return self.engine.vector_search(req)
+
+    def text_search(self, req: SearchRequest) -> List[SearchResult]:
+        return self.engine.text_search(req)
+
+    def hybrid_search(self, req: HybridSearchRequest) -> List[SearchResult]:
+        if req.dense_vector is None and req.query:
+            req.dense_vector = self.embedder.generate_embedding(req.query)
+        return self.engine.hybrid_search(req)
+
+    def vector_search_batch(self, vectors: np.ndarray, limit: int) -> List[List[ScoredPoint]]:
+        return self.engine.vector_search_batch(vectors, limit)
+
+    # -- maintenance ----------------------------------------------------------------
+
+    def rebuild_index(self) -> int:
+        """Re-read all docs and rebuild device/sparse/filter state (lib.rs:560-581)."""
+        with self._lock:
+            self.index.clear()
+            self.sparse.clear()
+            self.filter_engine.clear()
+            ids: List[str] = []
+            vecs: List[List[float]] = []
+            for rec in self.store.iter_records():
+                if rec.embedding is not None:
+                    ids.append(rec.id)
+                    vecs.append(rec.embedding)
+                self.sparse.add_document(rec.id, f"{rec.title} {rec.content}".strip())
+                self.filter_engine.index_document(rec.id, rec.metadata)
+            if ids:
+                arr = np.asarray(vecs, dtype=np.float32)
+                for i in range(0, len(ids), 8192):
+                    self.index.add_batch(ids[i:i + 8192], arr[i:i + 8192])
+            self.engine.invalidate_cache()
+            return len(ids)
+
+    def close(self) -> None:
+        self._closed = True
+        self._sparse_pool.shutdown(wait=True)
+        self.store.close()
+
+    # -- stats / health -------------------------------------------------------------
+
+    def stats(self) -> DatabaseStats:
+        idx = self.index.get_stats()
+        st = self.store.get_stats()
+        m = self.metrics.snapshot()
+        return DatabaseStats(
+            document_count=st.document_count,
+            index_size=idx.point_count,
+            index_kind=idx.kind,
+            index_memory_mb=idx.memory_usage_mb,
+            storage_size_bytes=st.estimated_size_bytes,
+            sparse_vocabulary=self.sparse.vocabulary_size(),
+            cache_hit_rate=m.cache_hit_rate,
+            uptime_s=time.monotonic() - self._t0,
+            extra={"qps": m.qps, "p95_ms": m.p95_latency_ms},
+        )
+
+    def health_check(self) -> Dict[str, Any]:
+        storage_ok = self.store.health_check()
+        index_ok = len(self.index) == sum(
+            1 for r in self.store.iter_records() if r.embedding is not None
+        )
+        return {
+            "status": "healthy" if storage_ok else "unhealthy",
+            "storage": storage_ok,
+            "index_consistent": index_ok,
+            "document_count": self.store.count(),
+            "index_count": len(self.index),
+        }

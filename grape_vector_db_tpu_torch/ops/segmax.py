@@ -1,0 +1,398 @@
+"""Segment top-k kernels for exact large-corpus search, and their phase 2.
+
+PyTorch counterpart of ``grape_vector_db_tpu/ops/segmax_pallas.py``'s main
+path. Phase 1 scores the whole corpus against the query batch and keeps, for
+every 32-row segment, only its top few values and the member index of the
+top ranks; the ``[B, N]`` score plane never leaves the kernel. Phase 2 picks
+candidate rows from those planes and rescores a handful of segments exactly.
+
+Segments are strided and block-major, as in the reference: segment
+``g = blk * 128 + j`` holds rows ``blk * 4096 + j + 128 * m`` for m < 32, so
+the planes compare one to one with the Pallas kernels' interpret-mode output.
+
+Phase 1 has two implementations of one contract:
+
+- the hand-written CUDA kernels in ``csrc/segmax.cu`` (``TOPJ`` = 4 replaces
+  ``_segmax4_kernel``, ``TOPJ`` = 2 replaces ``_segmax2_kernel``), built with
+  ``nvcc`` at first use into ``grape_vector_db_tpu_torch/_build/`` and called
+  through a plain C interface;
+- the plain PyTorch versions ``segmax4_scores_ref`` / ``segmax2_scores_ref``.
+
+``segmax4_scores`` / ``segmax2_scores`` take the plain version only for
+tensors on the CPU; for a CUDA tensor they launch the kernel or raise. Each
+launch adds one to ``LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from grape_vector_db_tpu_torch.ops.distance import f32_dots, prepare_queries
+
+__all__ = ["SEG", "CB", "LAUNCHES", "reset_launch_counts", "build_kernels",
+           "make_weight_plane", "segmax4_scores", "segmax4_scores_ref",
+           "segmax2_scores", "segmax2_scores_ref", "segmax4_topk",
+           "segmax2_topk"]
+
+SEG = 32          # rows per segment
+CB = 4096         # rows per corpus block
+SPB = CB // SEG   # segments per corpus block (128)
+
+NEG_INF = float("-inf")
+
+#: Kernel launches per wrapper since the last reset (CUDA tensors only).
+LAUNCHES: Dict[str, int] = {"segmax4": 0, "segmax2": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# -- building and binding the CUDA kernels -------------------------------------
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG_DIR, "csrc", "segmax.cu")
+_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
+#: What the last build did: library path, seconds, compiler log (ptxas -v).
+BUILD_INFO: Dict[str, object] = {}
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    nvcc = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(nvcc):
+        return nvcc
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the segment "
+        "top-k CUDA kernels are built from csrc/segmax.cu at first use and "
+        "need the CUDA toolkit")
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
+        with open(_SRC, "rb") as f:
+            src = f.read()
+        key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+        so = os.path.join(_BUILD_DIR, f"libgvdb_segmax_{key}.so")
+        t0 = time.perf_counter()
+        log = ""
+        if not os.path.exists(so):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.tmp.{os.getpid()}"
+            proc = subprocess.run([_find_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
+                                  capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {_SRC}:\n{log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        lib.gvdb_segmax.restype = ctypes.c_int
+        lib.gvdb_segmax.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        lib.gvdb_cuda_error_string.restype = ctypes.c_char_p
+        lib.gvdb_cuda_error_string.argtypes = [ctypes.c_int]
+        BUILD_INFO.update(library=so, seconds=time.perf_counter() - t0, log=log)
+        _LIB = lib
+        return lib
+
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor,
+            w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the TOPJ kernel: ([topj, B, N/SEG] f32, [topj-1, B, N/SEG] int32)."""
+    name = f"segmax{topj}"
+    dev = vectors.device
+    if dev.type != "cuda" or q.device != dev or w.device != dev:
+        raise ValueError(f"{name}: q, vectors and w must lie on one CUDA device")
+    if vectors.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: storage dtype {vectors.dtype} has no kernel "
+                         "(bfloat16 and float32 do)")
+    b, d = q.shape
+    n = vectors.shape[0]
+    if vectors.shape[1] != d or w.shape != (n,):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, vectors "
+                         f"{tuple(vectors.shape)}, w {tuple(w.shape)} disagree")
+    if n % CB or n // CB > 65535 or d % 128 or b < 1:
+        raise ValueError(f"{name}: needs N % {CB} == 0 (N <= {CB * 65535}), "
+                         f"D % 128 == 0 and B >= 1; got N={n}, D={d}, B={b}")
+    qc = q.to(vectors.dtype).contiguous()
+    wc = w.to(torch.float32).contiguous()
+    if not vectors.is_contiguous():
+        raise ValueError(f"{name}: vectors must be contiguous")
+    for t in (qc, vectors):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: q and vectors must be 16-byte aligned")
+    lib = build_kernels()
+    vals = torch.empty((topj, b, n // SEG), dtype=torch.float32, device=dev)
+    idxs = torch.empty((topj - 1, b, n // SEG), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.gvdb_segmax(topj, _DTYPE_CODE[vectors.dtype], dev.index or 0,
+                         qc.data_ptr(), vectors.data_ptr(), wc.data_ptr(),
+                         vals.data_ptr(), idxs.data_ptr(), b, n, d, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.gvdb_cuda_error_string(rc).decode()} ({rc})")
+    LAUNCHES[name] += 1
+    return vals, idxs
+
+
+# -- plain PyTorch versions ---------------------------------------------------
+
+
+def make_weight_plane(norms: torch.Tensor, valid: torch.Tensor,
+                      metric: str = "cosine") -> torch.Tensor:
+    """[N] norms + validity -> [N] f32 score weight (0 = invalid row)."""
+    if metric == "cosine":
+        w = 1.0 / torch.clamp(norms.to(torch.float32), min=1e-12)
+    else:
+        w = torch.ones_like(norms, dtype=torch.float32)
+    return torch.where(valid, w, 0.0)
+
+
+def _sorted_segments(q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
+                     topj: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scores in f32, viewed as [B, blocks, member, segment]; members sorted
+    by (score descending, member ascending) — a stable descending sort."""
+    b = q.shape[0]
+    n = vectors.shape[0]
+    if n % CB:
+        raise ValueError(f"N={n} must be a multiple of {CB}")
+    s = f32_dots(q, vectors)
+    s = torch.where(w[None, :] == 0, NEG_INF, s * w[None, :])
+    s = s.view(b, n // CB, SEG, SPB).transpose(2, 3)        # member axis last
+    vals, order = torch.sort(s, dim=-1, descending=True, stable=True)
+    vals = vals[..., :topj].reshape(b, n // SEG, topj)
+    order = order[..., :topj - 1].reshape(b, n // SEG, topj - 1)
+    return vals, order.to(torch.int32)
+
+
+def segmax4_scores_ref(q: torch.Tensor, vectors: torch.Tensor,
+                       w: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the top-4 kernel: (m1, m2, m3, m4, i1, i2, i3), each
+    [B, N/SEG]; values f32, member indices int32."""
+    vals, order = _sorted_segments(q, vectors, w, 4)
+    return (tuple(vals[..., t].contiguous() for t in range(4))
+            + tuple(order[..., t].contiguous() for t in range(3)))
+
+
+def segmax2_scores_ref(q: torch.Tensor, vectors: torch.Tensor,
+                       w: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the top-2 kernel: (m1, i1, m2), each [B, N/SEG]."""
+    vals, order = _sorted_segments(q, vectors, w, 2)
+    return (vals[..., 0].contiguous(), order[..., 0].contiguous(),
+            vals[..., 1].contiguous())
+
+
+def segmax4_scores(q: torch.Tensor, vectors: torch.Tensor,
+                   w: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(m1, m2, m3, m4, i1, i2, i3), [B, N/SEG] each, for q [B, D] f32
+    (prepared), vectors [N, D] and w [N] f32. CUDA tensors run the kernel."""
+    if vectors.device.type == "cpu":
+        return segmax4_scores_ref(q, vectors, w)
+    vals, idxs = _launch(4, q, vectors, w)
+    return tuple(vals.unbind(0)) + tuple(idxs.unbind(0))
+
+
+def segmax2_scores(q: torch.Tensor, vectors: torch.Tensor,
+                   w: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(m1, i1, m2), [B, N/SEG] each. CUDA tensors run the kernel."""
+    if vectors.device.type == "cpu":
+        return segmax2_scores_ref(q, vectors, w)
+    vals, idxs = _launch(2, q, vectors, w)
+    return vals[0], idxs[0], vals[1]
+
+
+# -- phase 2 ------------------------------------------------------------------
+
+
+def _dup_pick_mask(seg: torch.Tensor) -> torch.Tensor:
+    """[B, r] bool: True where this segment id already appeared at an earlier
+    position in the same row. ``torch.topk`` returns distinct positions, so
+    with it this is a no-op; it stays as the reference's guard against a
+    selection that repeats a pick over an all -inf plane (reference
+    ``_dup_pick_mask``), which would rescore the same rows twice."""
+    r = seg.shape[1]
+    pos = torch.arange(r, device=seg.device)
+    earlier = pos[None, None, :] < pos[None, :, None]
+    return torch.any((seg[:, :, None] == seg[:, None, :]) & earlier, dim=2)
+
+
+def _member_rows(ij: torch.Tensor, segj: torch.Tensor) -> torch.Tensor:
+    """Global row of the recorded member of each chosen segment."""
+    mem = torch.gather(ij, 1, segj).to(torch.int64)
+    return (segj // SPB) * CB + segj % SPB + mem * SPB
+
+
+def _segment_rows(seg: torch.Tensor) -> torch.Tensor:
+    """[B, r] segment ids -> [B, r * SEG] rows of all their members."""
+    b, r = seg.shape
+    mm = torch.arange(SEG, device=seg.device)
+    rows = ((seg // SPB)[:, :, None] * CB + (seg % SPB)[:, :, None]
+            + mm[None, None, :] * SPB)
+    return rows.reshape(b, r * SEG)
+
+
+def _rescore(q: torch.Tensor, vectors: torch.Tensor, norms: torch.Tensor,
+             valid: torch.Tensor, rows: torch.Tensor, metric: str) -> torch.Tensor:
+    """Exact scores of [B, C] gathered rows, in phase 1's arithmetic: f32
+    products of the stored values times the masked weight. The gathered rows
+    are few, so both operands are upcast to f32 (bf16 products are exact)."""
+    cvecs = vectors[rows].to(torch.float32)                 # [B, C, D]
+    qc = q.to(vectors.dtype).to(torch.float32)
+    dots = torch.bmm(cvecs, qc[:, :, None])[:, :, 0]        # [B, C]
+    w = make_weight_plane(norms[rows], valid[rows], metric)
+    rs = torch.where(w == 0, NEG_INF, dots * w)
+    if metric == "cosine":
+        rs = torch.clamp(rs, max=1.0)
+    return rs
+
+
+def _clamp(v: torch.Tensor, metric: str) -> torch.Tensor:
+    return torch.clamp(v, max=1.0) if metric == "cosine" else v
+
+
+def segmax4_topk(
+    queries: torch.Tensor,   # [B, D] f32 raw
+    vectors: torch.Tensor,   # [N, D] storage dtype
+    norms: torch.Tensor,     # [N] f32
+    valid: torch.Tensor,     # [N] bool
+    k: int,
+    metric: str = "cosine",
+    mask: Optional[torch.Tensor] = None,  # [N] bool filter (True = allowed)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k via the top-4-per-segment kernel (reference
+    ``pallas_segmax4_topk``): ranks 1..3 of every segment are known
+    candidates (value + member index from the kernel, no gather), and only
+    the top-floor(k/4) segments by fourth value are fully rescored.
+
+    Exactness: let tau be the true k-th score. A top-k row at rank j within
+    its segment s has m_j(s) >= tau, and s holds j rows >= tau, so at most
+    floor(k/j) segments can hold a rank-j top-k row; the top floor(k/j)
+    segments by m_j surface it. Only the m1 and m2 planes are selected in
+    full: m2 >= m3 >= m4, so the rank-3 pool and the rescore set are found
+    within the m2-top-floor(k/2) segments. Boundary ties are interchangeable
+    by value."""
+    n, d = vectors.shape
+    if mask is not None:
+        valid = torch.logical_and(valid, mask)
+    q = prepare_queries(queries, metric)
+    w = make_weight_plane(norms, valid, metric)
+    m1, m2, m3, m4, i1, i2, i3 = segmax4_scores(q, vectors, w)
+    num_seg = n // SEG
+    kk = min(k, num_seg)
+
+    v1, seg1 = torch.topk(m1, kk, dim=1)
+    pools_v = [_clamp(v1, metric)]
+    pools_rows = [_member_rows(i1, seg1)]
+    pools_seg = [seg1]
+    r2 = min(kk // 2, num_seg)
+    r3 = min(kk // 3, r2)
+    r4 = min(kk // 4, r2)
+    if r2:
+        v2, seg2 = torch.topk(m2, r2, dim=1)
+        pools_v.append(_clamp(v2, metric))
+        pools_rows.append(_member_rows(i2, seg2))
+        pools_seg.append(seg2)
+        dup2 = _dup_pick_mask(seg2)                             # [B, r2]
+    if r3:
+        m3_at = torch.where(dup2, NEG_INF, torch.gather(m3, 1, seg2))
+        v3, p3 = torch.topk(m3_at, r3, dim=1)
+        seg3 = torch.gather(seg2, 1, p3)
+        pools_v.append(_clamp(v3, metric))
+        pools_rows.append(_member_rows(i3, seg3))
+        pools_seg.append(seg3)
+    if r4 == 0:
+        cand_vals = torch.cat(pools_v, dim=1)
+        cand_rows = torch.cat(pools_rows, dim=1)
+        fvals, fpos = torch.topk(cand_vals, kk, dim=1)
+        return fvals, torch.gather(cand_rows, 1, fpos)
+
+    m4_at = torch.where(dup2, NEG_INF, torch.gather(m4, 1, seg2))
+    _, p4 = torch.topk(m4_at, r4, dim=1)
+    seg4 = torch.gather(seg2, 1, p4)               # segments needing rescore
+    rows4 = _segment_rows(seg4)                    # [B, r4*SEG]
+    rs = _rescore(q, vectors, norms, valid, rows4, metric)
+    rs = torch.where(torch.repeat_interleave(_dup_pick_mask(seg4), SEG, dim=1),
+                     NEG_INF, rs)
+    # dedup: known candidates whose segment is fully rescored appear twice —
+    # mask the known copy (the rescore copy carries the same value)
+    for i in range(len(pools_v)):
+        dup = torch.any(pools_seg[i][:, :, None] == seg4[:, None, :], dim=2)
+        pools_v[i] = torch.where(dup, NEG_INF, pools_v[i])
+
+    cand_vals = torch.cat(pools_v + [rs], dim=1)
+    cand_rows = torch.cat(pools_rows + [rows4], dim=1)
+    fvals, fpos = torch.topk(cand_vals, kk, dim=1)
+    return fvals, torch.gather(cand_rows, 1, fpos)
+
+
+def segmax2_topk(
+    queries: torch.Tensor,   # [B, D] f32 raw
+    vectors: torch.Tensor,   # [N, D] storage dtype
+    norms: torch.Tensor,     # [N] f32
+    valid: torch.Tensor,     # [N] bool
+    k: int,
+    metric: str = "cosine",
+    mask: Optional[torch.Tensor] = None,  # [N] bool filter (True = allowed)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k via the top-2-per-segment kernel (reference
+    ``pallas_segmax2_topk``): candidates are the top-k segment argmaxes
+    (values already exact, no gather) plus a full rescore of the
+    top-floor(k/2) segments by second value. A top-k row that is not its
+    segment's argmax has m2(s) >= tau, and more than floor(k/2) such
+    segments would hold more than k rows >= tau. For k == 1 no row is
+    gathered at all."""
+    n, d = vectors.shape
+    if mask is not None:
+        valid = torch.logical_and(valid, mask)
+    q = prepare_queries(queries, metric)
+    w = make_weight_plane(norms, valid, metric)
+    m1, i1, m2 = segmax2_scores(q, vectors, w)
+    num_seg = n // SEG
+    kk = min(k, num_seg)
+    v1, seg1 = torch.topk(m1, kk, dim=1)             # candidate argmax rows
+    rows1 = _member_rows(i1, seg1)
+    v1 = _clamp(v1, metric)
+    r = min(kk // 2, num_seg)
+    if r == 0:
+        return v1, rows1
+
+    _, seg2 = torch.topk(m2, r, dim=1)               # segments needing rescore
+    rows2 = _segment_rows(seg2)
+    rs = _rescore(q, vectors, norms, valid, rows2, metric)
+    rs = torch.where(torch.repeat_interleave(_dup_pick_mask(seg2), SEG, dim=1),
+                     NEG_INF, rs)
+    # dedup: argmax candidates whose segment is fully rescored would appear
+    # twice — mask the m1 copy (the rescore copy carries the same value)
+    dup = torch.any(seg1[:, :, None] == seg2[:, None, :], dim=2)
+    v1 = torch.where(dup, NEG_INF, v1)
+
+    cand_vals = torch.cat([v1, rs], dim=1)
+    cand_rows = torch.cat([rows1, rows2], dim=1)
+    fvals, fpos = torch.topk(cand_vals, kk, dim=1)
+    return fvals, torch.gather(cand_rows, 1, fpos)

@@ -1,0 +1,98 @@
+"""Comparison rules shared by the PyTorch port's parity tests.
+
+Top-k results compare as id sets with a near-tie guard: two engines that sum
+in different orders may swap rows whose scores lie within the tolerance of
+the k-th score, and nothing else. Values compare rank by rank.
+
+A tolerance ``tol`` is absolute for scores of magnitude up to 1 and relative
+above (``tol * max(1, |score|)``): dot and euclidean scores grow with the
+dimension, and f32 sums lose digits in proportion.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def to_np(x) -> np.ndarray:
+    """numpy copy of a torch tensor or a JAX / numpy array."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu()
+        if x.dtype.is_floating_point:
+            x = x.float()
+        return x.numpy()
+    return np.asarray(x)
+
+
+def _allowance(ref, tol: float):
+    return tol * np.maximum(1.0, np.abs(np.nan_to_num(ref, posinf=0.0, neginf=0.0)))
+
+
+def assert_close(vals, ref, tol: float) -> None:
+    vals = np.asarray(vals, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert vals.shape == ref.shape, (vals.shape, ref.shape)
+    np.testing.assert_array_equal(np.isneginf(vals), np.isneginf(ref))
+    fin = np.isfinite(ref)
+    bad = np.abs(vals[fin] - ref[fin]) > _allowance(ref[fin], tol)
+    assert not bad.any(), (
+        f"{bad.sum()} values differ by more than {tol} (scaled): "
+        f"{vals[fin][bad][:5]} vs {ref[fin][bad][:5]}")
+
+
+def assert_topk_match(vals, ids, ref_vals, ref_ids, tol: float) -> None:
+    """[B, k] (vals, ids) against a reference (ref_vals, ref_ids)."""
+    vals = to_np(vals).astype(np.float64)
+    ref_vals = to_np(ref_vals).astype(np.float64)
+    ids = to_np(ids).astype(np.int64)
+    ref_ids = to_np(ref_ids).astype(np.int64)
+    assert ids.shape == ref_ids.shape
+    assert_close(vals, ref_vals, tol)
+    for r in range(vals.shape[0]):
+        fin = np.isfinite(vals[r])
+        ref_fin = np.isfinite(ref_vals[r])
+        got = dict(zip(ids[r][fin].tolist(), vals[r][fin].tolist()))
+        want = dict(zip(ref_ids[r][ref_fin].tolist(), ref_vals[r][ref_fin].tolist()))
+        assert len(got) == fin.sum(), f"row {r}: duplicate ids {ids[r]}"
+        if not want:
+            assert not got
+            continue
+        kth = min(want.values())
+        for i in set(got) ^ set(want):
+            v = got.get(i, want.get(i))
+            assert abs(v - kth) <= _allowance(kth, tol), (
+                f"row {r}: id {i} (score {v}) differs away from the k-th "
+                f"score {kth}: {sorted(got)} vs {sorted(want)}")
+
+
+def assert_hits_match(hits, ref_hits, tol: float) -> None:
+    """Lists of (id, score) per query, as the index and planner return them."""
+    assert len(hits) == len(ref_hits)
+    for row, ref_row in zip(hits, ref_hits):
+        assert len(row) == len(ref_row), (row, ref_row)
+        assert_close([s for _, s in row], [s for _, s in ref_row], tol)
+        got, want = dict(row), dict(ref_row)
+        assert len(got) == len(row), f"duplicate ids in {row}"
+        if not want:
+            continue
+        kth = min(want.values())
+        for i in set(got) ^ set(want):
+            v = got.get(i, want.get(i))
+            assert abs(v - kth) <= _allowance(kth, tol), (i, v, kth, row, ref_row)
+
+
+def assert_planes_match(planes, ref_planes, n_vals: int, tol: float) -> None:
+    """Segment planes: the first ``n_vals`` are values (rank order), the rest
+    member indices of ranks 1.. — equal wherever the value of that rank is
+    more than ``tol`` from both neighbouring ranks."""
+    vals = np.stack([to_np(p).astype(np.float64) for p in planes[:n_vals]])
+    ref = np.stack([to_np(p).astype(np.float64) for p in ref_planes[:n_vals]])
+    assert_close(vals, ref, tol)
+    for t, (p, rp) in enumerate(zip(planes[n_vals:], ref_planes[n_vals:])):
+        i, ri = to_np(p).astype(np.int64), to_np(rp).astype(np.int64)
+        prev = ref[t - 1] if t else np.full_like(ref[0], np.inf)
+        with np.errstate(invalid="ignore"):
+            gap = np.minimum(prev - ref[t], ref[t] - ref[t + 1])
+        sure = gap > _allowance(ref[t], tol)
+        assert sure.mean() > 0.5, "too few separated ranks to check indices"
+        np.testing.assert_array_equal(i[sure], ri[sure])
