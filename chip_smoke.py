@@ -5,18 +5,29 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from csrc/, checks each against its plain
-PyTorch version, drives the port's main path (flat index, cosine, bf16
-storage, D=768) at 1,048,576 documents through ``VectorDatabase`` and checks
-the answers against a numpy oracle, then times the kernels, the plain
-versions, batch search and ingest. Every phase raises on failure. Earlier
-lines report each phase; the line before the last is a JSON object with one
-entry per kernel; the last line is the JSON result. Without a CUDA device, or
-without the repository beside it, it exits non-zero and prints no result.
+It builds the port's CUDA kernels from csrc/ (one nvcc per source, started
+together), checks each kernel against its plain PyTorch version, and drives
+the port's paths through ``VectorDatabase`` on the card:
+
+- flat (cosine, bf16, D=768) at 1,048,576 seeded Gaussian documents, against
+  a numpy oracle; its large-corpus search runs B1/B2 (``csrc/segmax.cu``);
+- the IVF family at the repository's 1M IVF configuration (bench.py:483-506:
+  1,048,576 x 768 clustered rows, 16,384 Gaussian centres + 0.25 noise,
+  nlist 4096, nprobe 16): ``ivf`` runs B3, ``ivf_int8`` B4 and ``ivf_int4``
+  B5 (``csrc/ivf_probe.cu``) through ingest, search before and after
+  ``optimize()``, filtered search on both planner routes, the streaming
+  exhaustive tier, deletes and search again, each against numpy oracles.
+
+Each path is driven with the launch counts set to 0 just before it and read
+just after. Every phase raises on failure. Earlier lines report each phase;
+the line before the last is a JSON object with one entry per kernel; the last
+line is the JSON result. Without a CUDA device, or without the repository
+beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import re
 import statistics
@@ -27,12 +38,25 @@ import time
 import numpy as np
 import torch
 
-N_ROWS = 1 << 20          # documents on the main path: capacity 1,048,576
+N_ROWS = 1 << 20          # flat path: capacity 1,048,576
 DIM = 768                 # the default configuration's vector_dimension
 BATCH = 128               # the serving batch
 INGEST_BATCH = 8192
 TOL = 3e-3                # bf16 accumulation-order tolerance (ROADMAP)
 SEED = 0
+# the repository's 1M IVF configuration (bench.py:483-506)
+IVF_ROWS = 1 << 20
+IVF_CENTRES = 16_384
+IVF_NOISE = 0.25
+IVF_NLIST = 4096
+NPROBE = 16               # the config default (config.py IndexConfig.nprobe)
+# the quantized kinds: the same corpus unless the run needs the time
+QUANT_ROWS = 1 << 20
+QUANT_NLIST = 4096
+
+DEV = "cuda"              # where the port's tensors live
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
+BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak
 
 KERNELS = {
     # name: (source in the repo, the TPU kernel it replaces)
@@ -40,7 +64,15 @@ KERNELS = {
                 "grape_vector_db_tpu/ops/segmax_pallas.py:354"),
     "segmax2": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
                 "grape_vector_db_tpu/ops/segmax_pallas.py:124"),
+    "ivf_probe": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
+                  "grape_vector_db_tpu/ops/ivf_pallas.py:155"),
+    "ivf_probe_int8": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
+                       "grape_vector_db_tpu/ops/ivf_pallas.py:331"),
+    "ivf_probe_int4": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
+                       "grape_vector_db_tpu/ops/ivf_pallas.py:477"),
 }
+# IVF kind -> the probe kernel its main search runs
+IVF_KERNEL = {"ivf": "ivf_probe", "ivf_int8": "ivf_probe_int8", "ivf_int4": "ivf_probe_int4"}
 
 
 def log(msg: str) -> None:
@@ -66,13 +98,35 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns(kern, plain, reps_k=10, reps_p=5):
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, reps_p)
+    k1 = cuda_ms(kern, reps_k)
+    k2 = cuda_ms(kern, reps_k)
+    p2 = cuda_ms(plain, reps_p)
+    return (k1, k2), (p1, p2)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the bf16 tensor-core peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def ptxas_summary(build_log: str):
     """One line per compiled kernel from nvcc's -Xptxas -v output."""
+    fmts = {"0": "bf16", "1": "f32", "2": "int8", "3": "int4"}
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)E(\w+?)EEv", line)
+        p = re.search(r"Compiling entry function '.*probe_kernelILi(\d)E+v", line)
         if m:
             name = f"segmax{m[1]}<{'bf16' if 'bfloat16' in m[2] else 'f32'}>"
+        elif p:
+            name = f"ivf_probe<{fmts[p[1]]}>"
         elif name and "spill stores" in line:
             spill = line.strip()
         elif name and "Used" in line and "registers" in line:
@@ -82,7 +136,20 @@ def ptxas_summary(build_log: str):
     return out
 
 
-# -- phase 1 ----------------------------------------------------------------
+def reset_counts():
+    from grape_vector_db_tpu_torch.ops import ivf, segmax
+
+    segmax.reset_launch_counts()
+    ivf.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from grape_vector_db_tpu_torch.ops import ivf, segmax
+
+    return {**segmax.LAUNCHES, **ivf.LAUNCHES}
+
+
+# -- set-up -----------------------------------------------------------------
 
 
 def setup():
@@ -94,25 +161,28 @@ def setup():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     log(smi)
-    from grape_vector_db_tpu_torch.ops import segmax
+    from grape_vector_db_tpu_torch.ops import _build, ivf, segmax
 
-    nvcc = subprocess.run([segmax._find_nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip().splitlines()[-1]
     log(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    segmax.build_kernels()
-    log(f"[setup] kernels built in {time.perf_counter() - t0:.2f} s "
-        f"({segmax.BUILD_INFO['library']})")
-    for entry in ptxas_summary(str(segmax.BUILD_INFO["log"])):
-        log(f"[setup] ptxas {entry}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # one nvcc per source
+        for fut in [pool.submit(segmax.build_kernels), pool.submit(ivf.build_kernels)]:
+            fut.result()
+    log(f"[setup] kernels built in {time.perf_counter() - t0:.2f} s (in parallel)")
+    for name in ("segmax", "ivf_probe"):
+        info = _build.BUILD_INFO[name]
+        log(f"[setup] {name}: {info['library']}, {info['seconds']:.2f} s")
+        for entry in ptxas_summary(str(info["log"])):
+            log(f"[setup] ptxas {entry}")
     a = torch.ones(4, 8, device="cuda", dtype=torch.bfloat16)
     require(torch.mm(a, a.T, out_dtype=torch.float32).dtype == torch.float32,
             "torch.mm(bf16, bf16, out_dtype=float32) did not return float32")
-    return segmax
 
 
-# -- phase 2 ----------------------------------------------------------------
+# -- B1, B2 against their plain versions ----------------------------------------
 
 
 def plane_check(name, got, want, n_vals):
@@ -138,32 +208,34 @@ def plane_check(name, got, want, n_vals):
     return err
 
 
-def kernel_phase(segmax):
-    """Each kernel against its plain version at the main path's shapes, then
+def segmax_phase():
+    """B1 and B2 against their plain versions at the flat path's shapes, then
     on an exact-arithmetic adversarial case; also times both."""
-    dev = torch.device("cuda")
+    from grape_vector_db_tpu_torch.ops import segmax
+
+    dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     v = torch.randn(N_ROWS, DIM, device=dev, generator=gen).to(torch.bfloat16)
     valid = torch.rand(N_ROWS, device=dev, generator=gen) >= 0.05
     w = segmax.make_weight_plane(v.float().norm(dim=1), valid, "cosine")
     q = torch.nn.functional.normalize(torch.randn(BATCH, DIM, device=dev, generator=gen), dim=1)
     out = {}
-    for name, kern, plain in (("segmax4", segmax.segmax4_scores, segmax.segmax4_scores_ref),
-                              ("segmax2", segmax.segmax2_scores, segmax.segmax2_scores_ref)):
+    for name, topj, kern, plain in (
+            ("segmax4", 4, segmax.segmax4_scores, segmax.segmax4_scores_ref),
+            ("segmax2", 2, segmax.segmax2_scores, segmax.segmax2_scores_ref)):
         got = kern(q, v, w)
         torch.cuda.synchronize()
         want = plain(q, v, w)
         if name == "segmax2":   # (m1, i1, m2) -> values first
             got, want = (got[0], got[2], got[1]), (want[0], want[2], want[1])
-        err = plane_check(f"{name} [{BATCH},{DIM}] x [{N_ROWS},{DIM}] bf16", got, want,
-                          4 if name == "segmax4" else 2)
-        # in turns: plain, kernel, kernel, plain
-        p1 = cuda_ms(lambda: plain(q, v, w), 5)
-        k1 = cuda_ms(lambda: kern(q, v, w), 10)
-        k2 = cuda_ms(lambda: kern(q, v, w), 10)
-        p2 = cuda_ms(lambda: plain(q, v, w), 5)
-        out[name] = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
-        log(f"[times] {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms "
+        err = plane_check(f"{name} [{BATCH},{DIM}] x [{N_ROWS},{DIM}] bf16", got, want, topj)
+        (k1, k2), (p1, p2) = in_turns(lambda: kern(q, v, w), lambda: plain(q, v, w))
+        nbytes = (N_ROWS * DIM * 2 + N_ROWS * 4 + BATCH * DIM * 2
+                  + (2 * topj - 1) * BATCH * (N_ROWS // 32) * 4)
+        out[name] = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                     **bound(nbytes, 2.0 * BATCH * N_ROWS * DIM), "library_ms": None}
+        log(f"[times] {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+            f"bound {out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
             f"(B={BATCH}, N={N_ROWS}, D={DIM}, bf16)")
     del v, valid, w, q
 
@@ -192,7 +264,51 @@ def kernel_phase(segmax):
     return out
 
 
-# -- phase 3 ----------------------------------------------------------------
+# -- B3, B4, B5 on an adversarial case ------------------------------------------
+
+
+def probe_adversarial():
+    """Every probe format against its plain version on small-integer data,
+    so every sum is exact and every plane must be equal: ragged nblocks (0,
+    an odd count, a count past the capacity), weights zeroed inside a list,
+    duplicate probe ids, C = 128."""
+    from grape_vector_db_tpu_torch.ops import ivf as tivf
+    from grape_vector_db_tpu_torch.ops.int4 import quantize_int4
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(SEED + 7)
+    n_lists, cap, d, b, p = 8, 128, 128, 40, 6
+    x = rng.integers(-3, 4, (n_lists, cap, d)).astype(np.float32)
+    q = torch.from_numpy(rng.integers(-3, 4, (b, d)).astype(np.float32)).to(dev)
+    nb = torch.tensor([2, 1, 0, 2, 1, 3, 2, 1], dtype=torch.int32, device=dev)
+    w = rng.choice([0.5, 1.0, 2.0], (n_lists, cap)).astype(np.float32)
+    w[0, 10:30] = 0.0
+    w[3, 64:70] = 0.0
+    w = torch.from_numpy(w).to(dev)
+    probe = torch.from_numpy(rng.integers(0, n_lists, (b, p)).astype(np.int32)).to(dev)
+    probe[:, 1] = probe[:, 0]                                    # duplicates
+    xt = torch.from_numpy(x).to(dev)
+    cases = [
+        ("ivf_probe", "bf16", tivf.ivf_probe_scores, tivf.ivf_probe_scores_ref,
+         xt.to(torch.bfloat16)),
+        ("ivf_probe", "f32", tivf.ivf_probe_scores, tivf.ivf_probe_scores_ref, xt),
+        ("ivf_probe_int8", "int8", tivf.ivf_probe_scores_int8, tivf.ivf_probe_scores_int8_ref,
+         xt.to(torch.int8)),
+        ("ivf_probe_int4", "int4", tivf.ivf_probe_scores_int4, tivf.ivf_probe_scores_int4_ref,
+         quantize_int4(xt.reshape(-1, d))[0].reshape(n_lists, cap, d // 2)),
+    ]
+    for name, fmt, kern, plain, data in cases:
+        got = kern(q, probe, data, w, nb)
+        torch.cuda.synchronize()
+        want = plain(q, probe, data, w, nb)
+        require(torch.equal(got, want), f"{name} {fmt}: adversarial scores differ "
+                f"(max {(got - want).abs().max().item()})")
+        require(bool((got[probe == 2] == -1e9).all()), f"{name} {fmt}: nblocks 0 not honoured")
+        log(f"[kernels] {name} {fmt} adversarial (ragged nblocks incl. 0, zero weights, "
+            f"duplicate probes, C={cap}, B={b}, P={p}): every score equal")
+
+
+# -- the flat path ----------------------------------------------------------------
 
 
 def corpus_batches():
@@ -251,15 +367,24 @@ def check_hits(name, hits, o_vals, o_ids, k, exclude=frozenset()):
                     f"{name} q{r}: score of {i} {got[i]} vs oracle {ref[i]}")
 
 
-def main_path(segmax):
+def timed_searches(db, queries, reps=20):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        db.vector_search_batch(queries, 10)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def flat_path():
     from grape_vector_db_tpu_torch import (Condition, Document, Filter, SearchRequest,
                                            VectorDatabase, VectorDbConfig)
 
     def group_of(rows):
         return rows % 10
 
-    db = VectorDatabase(config=VectorDbConfig(vector_dimension=DIM), device="cuda")
-    log(f"[main] VectorDatabase: index {db.index.kind}, metric {db.index.metric}, "
+    db = VectorDatabase(config=VectorDbConfig(vector_dimension=DIM), device=DEV)
+    log(f"[flat] VectorDatabase: index {db.index.kind}, metric {db.index.metric}, "
         f"storage {db.index.storage_dtype}, device {db.index.device}")
     rng = np.random.default_rng(SEED + 1)
     # half the queries lie near stored documents, half anywhere
@@ -268,7 +393,7 @@ def main_path(segmax):
     queries[BATCH // 2:] = rng.standard_normal((BATCH // 2, DIM), dtype=np.float32)
     near_pos = {int(r): i for i, r in enumerate(near)}
 
-    segmax.reset_launch_counts()
+    reset_counts()
     ingest_s = 0.0
     for start, x in corpus_batches():
         for r in range(start, start + len(x)):
@@ -284,7 +409,7 @@ def main_path(segmax):
     torch.cuda.synchronize()
     require(len(db.index) == N_ROWS and db.index.capacity == N_ROWS,
             f"index holds {len(db.index)} rows at capacity {db.index.capacity}")
-    log(f"[main] ingested {N_ROWS} documents in {ingest_s:.2f} s "
+    log(f"[flat] ingested {N_ROWS} documents in {ingest_s:.2f} s "
         f"({N_ROWS / ingest_s:.0f} docs/s, batches of {INGEST_BATCH}); capacity "
         f"{db.index.capacity}, {db.index.get_stats().memory_usage_mb:.0f} MB on the device")
 
@@ -302,11 +427,11 @@ def main_path(segmax):
     require(n_del == 1000, f"deleted {n_del} documents, wanted 1000")
     after = db.vector_search_batch(queries, 10)
     torch.cuda.synchronize()
-    launches = dict(segmax.LAUNCHES)
-    log(f"[main] searches done: batch B={BATCH} k=10, 4 x k=3, 4 x filtered k=10, "
+    launches = read_counts()
+    log(f"[flat] searches done: batch B={BATCH} k=10, 4 x k=3, 4 x filtered k=10, "
         f"deleted 1000, batch again; kernel launches {launches}")
-    for name in KERNELS:
-        require(launches[name] > 0, f"the main path never launched {name}")
+    for name in ("segmax4", "segmax2"):
+        require(launches[name] > 0, f"the flat path never launched {name}")
 
     (o_vals, o_ids), (f_vals, f_ids) = oracle(corpus_batches(), queries, group_of)
     check_hits("batch k=10", batch, o_vals, o_ids, 10)
@@ -316,28 +441,373 @@ def main_path(segmax):
             "a filtered result broke the filter")
     check_hits("after delete k=10", after, o_vals, o_ids, 10, exclude=frozenset(doomed))
     top1 = sum(int(batch[i][0].id[3:]) == int(near[i]) for i in range(BATCH // 2))
-    log(f"[main] all answers agree with the numpy oracle (f32 cosine over the "
+    log(f"[flat] all answers agree with the numpy oracle (f32 cosine over the "
         f"bf16-rounded corpus, tolerance {TOL}); near-document queries found their "
         f"document first {top1}/{BATCH // 2}")
-
-    times = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        db.vector_search_batch(queries, 10)
-        times.append(time.perf_counter() - t0)
-    med = statistics.median(times)
-    log(f"[times] vector_search_batch B={BATCH} k=10 at {N_ROWS - 1000} documents: "
+    med = timed_searches(db, queries)
+    log(f"[times] flat vector_search_batch B={BATCH} k=10 at {N_ROWS - 1000} documents: "
         f"median {med * 1e3:.3f} ms of 20 ({BATCH / med:.0f} queries/s); "
         f"ingest {N_ROWS / ingest_s:.0f} docs/s")
     db.close()
-    return launches
+    return {name: launches[name] for name in ("segmax4", "segmax2")}
+
+
+# -- the IVF family ---------------------------------------------------------------
+
+
+class Clustered:
+    """The 1M IVF corpus (bench.py:483-506): Gaussian centres plus 0.25 noise,
+    made with numpy from SEED, with a query batch (half stored rows + 0.05
+    noise, half fresh points of the cluster distribution) and the numpy
+    oracle's f32 cosine scores of every query against every bf16-rounded
+    row."""
+
+    def __init__(self, rows: int):
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 2)
+        centres = rng.standard_normal((IVF_CENTRES, DIM), dtype=np.float32)
+        self.x = np.empty((rows, DIM), np.float32)
+        for off in range(0, rows, INGEST_BATCH):
+            cid = rng.integers(0, IVF_CENTRES, INGEST_BATCH)
+            self.x[off:off + INGEST_BATCH] = centres[cid] + IVF_NOISE * rng.standard_normal(
+                (INGEST_BATCH, DIM), dtype=np.float32)
+        self.near = rng.choice(rows, BATCH // 2, replace=False)
+        q = np.empty((BATCH, DIM), np.float32)
+        q[:BATCH // 2] = self.x[self.near] + 0.05 * rng.standard_normal(
+            (BATCH // 2, DIM), dtype=np.float32)
+        q[BATCH // 2:] = (centres[rng.integers(0, IVF_CENTRES, BATCH // 2)]
+                          + IVF_NOISE * rng.standard_normal((BATCH // 2, DIM), dtype=np.float32))
+        self.queries = q
+        self.qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+        self.scores = np.empty((BATCH, rows), np.float32)
+        for off in range(0, rows, 65536):
+            xr = torch.from_numpy(self.x[off:off + 65536]).to(torch.bfloat16).float().numpy()
+            self.scores[:, off:off + 65536] = (self.qn @ xr.T) / np.linalg.norm(xr, axis=1)[None, :]
+        self.rows = rows
+        log(f"[ivf] corpus {rows} x {DIM} ({IVF_CENTRES} centres + {IVF_NOISE} noise), "
+            f"queries and oracle scores made in {time.perf_counter() - t0:.1f} s")
+
+
+def to_rows(hits):
+    """ScoredPoint lists or (id, score) lists -> lists of (row, score)."""
+    out = []
+    for row in hits:
+        out.append([(int(h.id[3:]), h.score) if hasattr(h, "id") else (int(h[0][3:]), h[1])
+                    for h in row])
+    return out
+
+
+def list_of_rows(idx, rows: int) -> np.ndarray:
+    """[rows] list id of each document in the index's bookkeeping: -1 in the
+    overflow region, -2 when absent (deleted)."""
+    out = np.full(rows, -2, np.int64)
+    for id_, (lst, _) in idx._id_to_cell.items():
+        out[int(id_[3:])] = lst
+    for id_ in idx._overflow._id_to_slot:
+        out[int(id_[3:])] = -1
+    return out
+
+
+def probed_candidates(idx, corpus: Clustered, qsel, allowed=None):
+    """Per query of ``qsel``: the candidate-row mask of the probe oracle (rows
+    of the nprobe lists the port's own centroids choose, plus the overflow
+    region, minus absent rows), or None for a query whose nprobe-th and next
+    centroid scores lie within 1e-5 (a near tie of the list choice)."""
+    cents = idx.centroids.float().cpu().numpy()
+    row_list = list_of_rows(idx, corpus.rows)
+    out = []
+    for r in qsel:
+        cs = corpus.qn[r] @ cents.T
+        order = np.argsort(-cs)
+        if cs[order[NPROBE - 1]] - cs[order[NPROBE]] < 1e-5:
+            out.append(None)
+            continue
+        lut = np.zeros(idx.nlist + 2, bool)
+        lut[order[:NPROBE] + 2] = True
+        lut[1] = True                                   # the overflow region
+        cand = lut[row_list + 2]
+        if allowed is not None:
+            cand &= allowed
+        out.append(cand)
+    return out
+
+
+def top_of(scores: np.ndarray, cand: np.ndarray, k: int):
+    s = np.where(cand, scores, -np.inf)
+    top = np.argpartition(-s, k - 1)[:k]
+    top = top[np.argsort(-s[top])]
+    return [(int(i), float(s[i])) for i in top if np.isfinite(s[i])]
+
+
+def check_exact(name, hits, corpus, qsel, cands, k):
+    """Ids as sets against the oracle's top-k over each query's candidates
+    (near-tie guard), scores within TOL. Returns (recall, queries checked)."""
+    found = total = checked = 0
+    for r, row, cand in zip(qsel, hits, cands):
+        if cand is None:
+            continue
+        want = top_of(corpus.scores[r], cand, k)
+        require(len(want) == k, f"{name}: oracle has fewer than {k} rows")
+        got = dict(row)
+        require(len(row) == k and len(got) == k, f"{name} q{r}: {len(row)} hits, duplicates?")
+        ref = dict(want)
+        kth = want[-1][1]
+        for i in set(got) ^ set(ref):
+            s = got.get(i, ref.get(i))
+            require(abs(s - kth) <= TOL, f"{name} q{r}: id {i} (score {s}) differs from "
+                    f"the oracle away from the k-th score {kth}")
+        for i in set(got) & set(ref):
+            require(abs(got[i] - ref[i]) <= TOL,
+                    f"{name} q{r}: score of {i} {got[i]} vs oracle {ref[i]}")
+        found += len(set(got) & set(ref))
+        total += k
+        checked += 1
+    return found / max(total, 1), checked
+
+
+def check_members(name, hits, corpus, qsel, cands, k):
+    """For the quantized kinds, whose final ranking depends on which
+    candidates the code scores keep: every returned id is a candidate and
+    its score is the oracle's exact score for it within TOL. Returns
+    (recall against the oracle's top-k over the candidates, queries checked)."""
+    found = total = checked = 0
+    for r, row, cand in zip(qsel, hits, cands):
+        if cand is None:
+            continue
+        got = dict(row)
+        require(len(row) == k and len(got) == k, f"{name} q{r}: {len(row)} hits, duplicates?")
+        for i, s in got.items():
+            require(bool(cand[i]), f"{name} q{r}: id {i} lies in no probed list or allowed row")
+            require(abs(s - float(corpus.scores[r, i])) <= TOL,
+                    f"{name} q{r}: score of {i} {s} vs exact {corpus.scores[r, i]}")
+        want = {i for i, _ in top_of(corpus.scores[r], cand, k)}
+        found += len(set(got) & want)
+        total += k
+        checked += 1
+    return found / max(total, 1), checked
+
+
+def recall_full(hits, corpus, alive, k=10):
+    found = 0
+    for r, row in enumerate(hits):
+        want = {i for i, _ in top_of(corpus.scores[r], alive, k)}
+        found += len({i for i, _ in row} & want)
+    return found / (k * len(hits))
+
+
+def probe_main_shapes(kind, idx, corpus):
+    """The path's probe kernel against its plain version at the main path's
+    shapes, taken from the real index after optimize(); times both in turns
+    and computes the bound."""
+    from grape_vector_db_tpu_torch.ops import ivf as tivf
+    from grape_vector_db_tpu_torch.ops.distance import prepare_queries
+
+    name = IVF_KERNEL[kind]
+    if kind == "ivf":
+        kern, plain, data, w = tivf.ivf_probe_scores, tivf.ivf_probe_scores_ref, idx.vecs, idx.recip
+    elif kind == "ivf_int8":
+        kern, plain, data, w = (tivf.ivf_probe_scores_int8, tivf.ivf_probe_scores_int8_ref,
+                                idx.codes, idx.factor)
+    else:
+        kern, plain, data, w = (tivf.ivf_probe_scores_int4, tivf.ivf_probe_scores_int4_ref,
+                                idx.codes, idx.factor)
+    qp = prepare_queries(torch.from_numpy(corpus.queries).to(DEV), "cosine")
+    _, probe = torch.topk(qp @ idx.centroids.T, NPROBE, dim=1)
+    probe = probe.to(torch.int32)
+    nb = idx._nblocks()
+    got = kern(qp, probe, data, w, nb)
+    torch.cuda.synchronize()
+    want = plain(qp, probe, data, w, nb)
+    inv = want == -1e9
+    require(torch.equal(got == -1e9, inv), f"{name}: -1e9 positions differ")
+    err = (got - want)[~inv].abs().max().item()
+    require(err <= TOL, f"{name}: max |score diff| {err} > {TOL}")
+    (k1, k2), (p1, p2) = in_turns(lambda: kern(qp, probe, data, w, nb),
+                                  lambda: plain(qp, probe, data, w, nb))
+    n_lists, cap = w.shape
+    lim = torch.clamp(nb.long() * 64, max=cap)
+    live = (w != 0) & (torch.arange(cap, device=w.device)[None, :] < lim[:, None])
+    rows_per_list = live.sum(dim=1)
+    row_bytes = data.shape[2] * data.element_size() + 4      # the row and its weight
+    per_cell = int(rows_per_list[probe.long()].sum()) * row_bytes
+    unique = int(rows_per_list[torch.unique(probe.long())].sum()) * row_bytes
+    other = (BATCH * DIM * 4 + probe.numel() * 4 + n_lists * 4
+             + BATCH * NPROBE * cap * 4)                       # q, probe, nblocks, output
+    ops = 2.0 * int(rows_per_list[probe.long()].sum()) * DIM
+    b = bound(min(per_cell, unique) + other, ops)
+    log(f"[kernels] {name} [{BATCH},{DIM}] x probe [{BATCH},{NPROBE}] over [{n_lists},{cap},"
+        f"{data.shape[2]}] {data.dtype} (index after optimize): max_abs_err {err:.3g}, "
+        f"-1e9 positions equal")
+    log(f"[times] {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
+        f"reads per cell {per_cell / 1e9:.3f} GB, each probed list once {unique / 1e9:.3f} GB "
+        f"({len(torch.unique(probe))} lists); bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b,
+            "library_ms": None}
+
+
+def search_breakdown(kind, idx, corpus, e2e_s, probe_ms):
+    """Where a vector_search_batch call's time goes: the device span of the
+    index's top-k (centroid scores, probe, selection; CUDA events), the
+    index's search_batch on the host clock (plus upload, readback, hit
+    building), and the planner and result building (the rest)."""
+    qt = torch.from_numpy(corpus.queries).to(DEV)
+    dev_ms = cuda_ms(lambda: idx._main_topk(qt, 10, None), 20)
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        idx.search_batch(corpus.queries, 10)
+        times.append(time.perf_counter() - t0)
+    index_ms = statistics.median(times) * 1e3
+    e2e_ms = e2e_s * 1e3
+    log(f"[times] {kind} breakdown of vector_search_batch B={BATCH}: end to end {e2e_ms:.3f} ms; "
+        f"index.search_batch {index_ms:.3f} ms (median of 20); device top-k span "
+        f"{dev_ms:.3f} ms (probe kernel {probe_ms:.3f} ms); upload, readback and hit building "
+        f"{index_ms - dev_ms:.3f} ms; planner and results {e2e_ms - index_ms:.3f} ms; "
+        f"device busy share ~{dev_ms / e2e_ms:.2f}")
+
+
+def ivf_path(kind: str, corpus: Clustered, nlist: int):
+    from grape_vector_db_tpu_torch import (Condition, Document, Filter, SearchRequest,
+                                           VectorDatabase, VectorDbConfig)
+
+    rows = corpus.rows
+    cfg = VectorDbConfig(vector_dimension=DIM)
+    cfg.index.kind = kind
+    cfg.index.nlist = nlist
+    cfg.index.nprobe = NPROBE
+    db = VectorDatabase(config=cfg, device=DEV)
+    idx = db.index
+    quant = kind != "ivf"
+    check = check_members if quant else check_exact
+    group = np.arange(rows) % 10
+    everyone = list(range(BATCH))
+    tag = f"[{kind}]"
+    log(f"{tag} VectorDatabase: {rows} rows, nlist {nlist}, nprobe {idx.nprobe}, metric "
+        f"{idx.metric}, storage {idx.storage_dtype}"
+        + (f", rescore {idx.rescore}, keep_bf16 {idx.keep_bf16}" if quant else ""))
+
+    reset_counts()
+    ingest_s = 0.0
+    for start in range(0, rows, INGEST_BATCH):
+        x = corpus.x[start:start + INGEST_BATCH]
+        docs = [Document(id=f"doc{start + i}", content=f"doc {(start + i) % 997}",
+                         vector=x[i], metadata={"g": int(group[start + i])})
+                for i in range(len(x))]
+        t0 = time.perf_counter()
+        db.batch_add_documents(docs)
+        ingest_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    require(len(idx) == rows, f"{kind}: index holds {len(idx)} rows")
+    n_over = len(idx._overflow)
+    before = to_rows(db.vector_search_batch(corpus.queries, 10))
+    before_cands = probed_candidates(idx, corpus, everyone)
+    t0 = time.perf_counter()
+    db.optimize()
+    torch.cuda.synchronize()
+    optimize_s = time.perf_counter() - t0
+    log(f"{tag} ingested {rows} in {ingest_s:.2f} s ({rows / ingest_s:.0f} docs/s); "
+        f"{n_over} rows in the overflow region before optimize(); optimize() "
+        f"{optimize_s:.2f} s: list_cap {idx.list_cap}, overflow {len(idx._overflow)}, "
+        f"{idx.get_stats().memory_usage_mb:.0f} MB")
+
+    batch = to_rows(db.vector_search_batch(corpus.queries, 10))
+    single = [to_rows([db.vector_search(SearchRequest(vector=corpus.queries[i].tolist(),
+                                                      limit=3))])[0] for i in range(4)]
+    f90 = [to_rows([db.vector_search(SearchRequest(
+        vector=corpus.queries[i].tolist(), limit=10,
+        filter=Filter(must=[Condition("g", "lt", 9)])))])[0] for i in range(4)]
+    f10 = [to_rows([db.vector_search(SearchRequest(
+        vector=corpus.queries[i].tolist(), limit=10,
+        filter=Filter(must=[Condition("g", "eq", 3)])))])[0] for i in range(4)]
+    compact_used = idx._compact_cache is not None
+    allowed_ids = {f"doc{r}" for r in np.flatnonzero(group == 3)}
+    idx.compact_max_bytes = 0                      # force the streaming tier
+    with idx.locked():
+        mask = idx.compile_mask(allowed_ids)
+        stream = to_rows(idx.search_batch(corpus.queries, 10, mask=mask, exhaustive=True))
+    del idx.compact_max_bytes
+    post_cands = probed_candidates(idx, corpus, everyone)
+    # delete 1000 documents, the current top hits first
+    doomed = list(dict.fromkeys(i for row in batch for i, _ in row))[:1000]
+    taken = set(doomed)
+    doomed += [i for i in range(rows) if i not in taken][:1000 - len(doomed)]
+    n_del = db.batch_delete_documents([f"doc{i}" for i in doomed])
+    require(n_del == 1000, f"{kind}: deleted {n_del} documents, wanted 1000")
+    after = to_rows(db.vector_search_batch(corpus.queries, 10))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    kname = IVF_KERNEL[kind]
+    log(f"{tag} searches done: batch B={BATCH} before and after optimize, 4 x k=3, 4 x "
+        f"filtered at 90% and 10%, the streaming tier, deleted 1000, batch again; "
+        f"kernel launches {launches}")
+    require(launches[kname] > 0, f"the {kind} path never launched {kname}")
+    require(compact_used, f"{kind}: the 10% filter did not take the compact tier")
+
+    alive = np.ones(rows, bool)
+    rec_b, n_b = check("before optimize k=10", before, corpus, everyone, before_cands, 10)
+    rec, n_ok = check("batch k=10", batch, corpus, everyone, post_cands, 10)
+    check("single k=3", single, corpus, range(4), post_cands[:4], 3)
+    rec90, _ = check("filtered 90% k=10", f90, corpus, range(4),
+                     [None if c is None else c & (group < 9) for c in post_cands[:4]], 10)
+    full10 = [group == 3] * 4
+    check_exact("filtered 10% (compact tier) k=10", f10, corpus, range(4), full10, 10)
+    if quant:
+        # the streaming tier scores the codes (no rescore): its ids must be
+        # allowed; its recall against the exact masked oracle is reported
+        rec_s = recall_full(stream, corpus, group == 3)
+        require(all(group[i] == 3 for row in stream for i, _ in row) and
+                all(len(row) == 10 for row in stream), f"{kind}: streaming tier broke the filter")
+    else:
+        rec_s, _ = check_exact("streaming tier k=10", stream, corpus, everyone,
+                               [group == 3] * BATCH, 10)
+    gone = set(doomed)
+    alive[list(gone)] = False
+    require(not any(i in gone for row in after for i, _ in row),
+            f"{kind}: a deleted id came back")
+    after_cands = probed_candidates(idx, corpus, everyone)
+    rec_a, _ = check("after delete k=10", after, corpus, everyone, after_cands, 10)
+    skipped = sum(c is None for c in post_cands)
+    top1 = sum(batch[i][0][0] == int(corpus.near[i]) for i in range(BATCH // 2))
+    log(f"{tag} answers agree with the numpy oracles ({'ids in probed lists, exact scores' if quant else 'exact over the probed lists'}"
+        f", tolerance {TOL}): {n_ok} of {BATCH} queries checked ({skipped} left out for a "
+        f"near tie of the list choice); recall@10 against the probed-lists oracle "
+        f"{rec:.4f} (before optimize {rec_b:.4f}, after delete {rec_a:.4f}, 90% filter "
+        f"{rec90:.4f}); streaming tier recall@10 against the exact masked oracle {rec_s:.4f}; "
+        f"near-document queries found their document first {top1}/{BATCH // 2}")
+    log(f"{tag} recall@10 at nprobe {NPROBE} against the full flat oracle: "
+        f"{recall_full(batch, corpus, np.ones(rows, bool)):.4f}")
+
+    med = timed_searches(db, corpus.queries)
+    log(f"[times] {kind} vector_search_batch B={BATCH} k=10 at {rows - 1000} documents: "
+        f"median {med * 1e3:.3f} ms of 20 ({BATCH / med:.0f} queries/s); ingest "
+        f"{rows / ingest_s:.0f} docs/s; optimize {optimize_s:.2f} s")
+    stats = probe_main_shapes(kind, idx, corpus)
+    search_breakdown(kind, idx, corpus, med, stats["ms"])
+    db.close()
+    return launches[kname], stats
 
 
 def main():
-    segmax = setup()
-    kernel_stats = kernel_phase(segmax)
+    t_start = time.perf_counter()
+    setup()
+    kernel_stats = segmax_phase()
+    probe_adversarial()
     torch.cuda.empty_cache()
-    launches = main_path(segmax)
+    launches = flat_path()
+    torch.cuda.empty_cache()
+    log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
+    corpus = Clustered(IVF_ROWS)
+    launches["ivf_probe"], kernel_stats["ivf_probe"] = ivf_path("ivf", corpus, IVF_NLIST)
+    torch.cuda.empty_cache()
+    log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
+    if QUANT_ROWS != IVF_ROWS:
+        corpus = Clustered(QUANT_ROWS)
+    log(f"[ivf] the quantized kinds run at {QUANT_ROWS} rows, nlist {QUANT_NLIST}")
+    for kind in ("ivf_int8", "ivf_int4"):
+        name = IVF_KERNEL[kind]
+        launches[name], kernel_stats[name] = ivf_path(kind, corpus, QUANT_NLIST)
+        torch.cuda.empty_cache()
+        log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **kernel_stats[name]}

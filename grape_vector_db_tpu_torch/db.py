@@ -6,21 +6,22 @@ ingest (single add delegates to batch, lib.rs:309-356), fixed mutation order
 on delete (index before storage, lib.rs:380-390), and rebuild_index from
 stored documents (lib.rs:560-581).
 
-Ported so far: the flat index kind over the memory store, with ingest,
-search, delete, rebuild, stats and health. Every other index kind, the
-sharded kinds, the file store, index snapshots, backups, listing, tuning,
-pipelined ingest and the enterprise wrappers are still to be ported
-(ROADMAP.md, queue A).
+Ported so far: the flat index kind and the IVF family (ivf, ivf_int8,
+ivf_int4) over the memory store, with ingest, search, delete, rebuild,
+optimize, tuning, stats and health. Every other index kind, the sharded
+kinds, the file store, index snapshots, backups, listing, pipelined ingest
+and the enterprise wrappers are still to be ported (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import itertools
 import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +32,8 @@ from grape_vector_db_tpu_torch.engine.hybrid import HybridSearchEngine
 from grape_vector_db_tpu_torch.engine.planner import QueryEngine
 from grape_vector_db_tpu_torch.engine.sparse import SparseIndex
 from grape_vector_db_tpu_torch.errors import InvalidArgumentError, StateError
-from grape_vector_db_tpu_torch.index import FlatDeviceIndex, VectorIndex
+from grape_vector_db_tpu_torch.index import (FlatDeviceIndex, Int4IvfDeviceIndex,
+                                             Int8IvfDeviceIndex, IvfDeviceIndex, VectorIndex)
 from grape_vector_db_tpu_torch.services.embeddings import EmbeddingProvider, create_provider
 from grape_vector_db_tpu_torch.services.metrics import MetricsCollector
 from grape_vector_db_tpu_torch.storage import DocumentStore, MemoryDocumentStore
@@ -63,25 +65,35 @@ class DatabaseStats:
 
 
 def build_index(config: VectorDbConfig, device: str | torch.device = "cuda") -> VectorIndex:
-    """The index for ``config`` on ``device``. Only ``kind="flat"`` is ported."""
+    """The index for ``config`` on ``device``. Ported kinds: ``"flat"``,
+    ``"ivf"``, ``"ivf_int8"`` and ``"ivf_int4"``."""
     kind = config.index.kind
     if config.device.auto_shard and kind in ("flat", "ivf", "ivf_int8", "ivf_int4"):
         raise InvalidArgumentError(
             "auto_shard is not ported to the PyTorch package yet: the sharded "
             "kinds wait for ROADMAP A.14 (parallel/mesh.py on torch.distributed)")
+    common = dict(
+        dimension=config.vector_dimension,
+        metric=config.distance,
+        storage_dtype=config.device.storage_dtype,
+        initial_capacity=config.index.initial_capacity,
+        growth_factor=config.device.growth_factor,
+        search_mode=config.device.search_mode,
+        device=device,
+    )
     if kind == "flat":
-        return FlatDeviceIndex(
-            dimension=config.vector_dimension,
-            metric=config.distance,
-            storage_dtype=config.device.storage_dtype,
-            initial_capacity=config.index.initial_capacity,
-            growth_factor=config.device.growth_factor,
-            search_mode=config.device.search_mode,
-            device=device,
-        )
+        return FlatDeviceIndex(**common)
+    ivf = dict(common, nlist=config.index.nlist, nprobe=config.index.nprobe)
+    if kind == "ivf":
+        return IvfDeviceIndex(**ivf)
+    if kind in ("ivf_int8", "ivf_int4"):
+        cls = Int8IvfDeviceIndex if kind == "ivf_int8" else Int4IvfDeviceIndex
+        return cls(**ivf, rescore=config.index.int8_rescore,
+                   keep_bf16=config.index.ivf_int8_keep_bf16)
     raise InvalidArgumentError(
-        f"index kind {kind!r} is not ported to the PyTorch package yet: only "
-        "'flat' is; the other kinds wait for ROADMAP A.7-A.14")
+        f"index kind {kind!r} is not ported to the PyTorch package yet: 'flat', "
+        "'ivf', 'ivf_int8' and 'ivf_int4' are; the other kinds wait for ROADMAP "
+        "A.10-A.14")
 
 
 def _stack_vectors(docs: Sequence[Document], dim: int) -> np.ndarray:
@@ -304,6 +316,145 @@ class VectorDatabase:
                     self.index.add_batch(ids[i:i + 8192], arr[i:i + 8192])
             self.engine.invalidate_cache()
             return len(ids)
+
+    def optimize(self) -> None:
+        self.index.optimize()
+
+    def tune(self, target_recall: float = 0.95, k: int = 10,
+             queries: Optional[np.ndarray] = None, hard: bool = False,
+             max_host_rescore: int = 64) -> dict:
+        """Tune the index's recall/speed knob for a recall target on this
+        corpus and pin the search path to it. IVF kinds sweep nprobe; exact
+        kinds have nothing to tune.
+
+        - default (``hard=False``, no ``queries``): the self-recall protocol,
+          validation queries are corpus rows (``tune_nprobe``). The easy
+          bound: a row's neighbours concentrate in its own list.
+        - ``hard=True`` or explicit held-out ``queries``: sweeps nprobe x
+          host_rescore against an exhaustive-probe + exact-host-rescore
+          oracle, on held-out queries synthesized from the cluster
+          distribution when none are given (``synth_tuning_queries``), and
+          pins ``index.nprobe`` and ``config.query.host_rescore``.
+        """
+        out: dict = {"kind": self.index.kind}
+        tune_np = getattr(self.index, "tune_nprobe", None)
+        if tune_np is not None:
+            if hard or queries is not None:
+                out.update(self._tune_hard(queries, k, target_recall, max_host_rescore))
+            else:
+                out["nprobe"] = tune_np(k=k, target_recall=target_recall)
+        self.engine.invalidate_cache()
+        return out
+
+    def synth_tuning_queries(self, n: int = 128, seed: int = 0) -> np.ndarray:
+        """Held-out tuning queries from the cluster distribution: midpoints
+        of stored pairs that share a list, on the data manifold but not
+        corpus rows, whose true neighbours spread over adjacent lists."""
+        rng = np.random.default_rng(seed)
+        cell = getattr(self.index, "_id_to_cell", None)
+        dim = self.config.vector_dimension
+        if not cell:
+            raise InvalidArgumentError(
+                "synth_tuning_queries needs a trained IVF-family index")
+        ids = list(cell)
+        # sample enough ids that ~n same-list pairs appear by birthday
+        # collision (m^2 / 2L >= n) without walking the whole id map
+        nlist = getattr(self.index, "nlist", 1)
+        m = min(len(ids), int(np.sqrt(2.0 * nlist * n)) + 4 * n)
+        sample = rng.choice(len(ids), size=m, replace=False)
+        by_list: Dict[int, List[str]] = {}
+        for si in sample:
+            id_ = ids[si]
+            by_list.setdefault(cell[id_][0], []).append(id_)
+        pairs: List[Tuple[str, str]] = []
+        for members in by_list.values():
+            rng.shuffle(members)
+            for a, b in zip(members[::2], members[1::2]):
+                pairs.append((a, b))
+        if not pairs:
+            raise InvalidArgumentError(
+                "not enough same-list pairs to synthesize queries — pass "
+                "held-out queries explicitly")
+        take = [pairs[i % len(pairs)] for i in range(n)]
+        qs = np.empty((n, dim), np.float32)
+        for i, (a, b) in enumerate(take):
+            ra, rb = self.store.get(a), self.store.get(b)
+            if ra is None or ra.embedding is None or rb is None or rb.embedding is None:
+                va = self.index.get_vector(a)
+                vb = self.index.get_vector(b)
+            else:
+                va = np.asarray(ra.embedding, np.float32)
+                vb = np.asarray(rb.embedding, np.float32)
+            qs[i] = 0.5 * (va + vb)
+        return qs
+
+    def _tune_hard(self, queries: Optional[np.ndarray], k: int,
+                   target_recall: float, max_host_rescore: int) -> dict:
+        """Joint (nprobe, host_rescore) sweep against this index's best
+        reachable answer (the exhaustive tier over every valid cell, with the
+        store's full-precision rescore) on held-out queries. Pins
+        index.nprobe and config.query.host_rescore."""
+        idx = self.index
+        if queries is None:
+            queries = self.synth_tuning_queries(n=128)
+        queries = np.asarray(queries, dtype=np.float32)
+        # host rescore needs full-precision rows in the store
+        have_store = False
+        for id_ in itertools.islice(getattr(idx, "_id_to_cell", {}), 1):
+            rec = self.store.get(id_)
+            have_store = rec is not None and rec.embedding is not None
+        rescore_grid = [0, max_host_rescore] if (
+            have_store and max_host_rescore > k) else [0]
+        # one fetch width for the whole sweep: a fetch-`max` row truncated
+        # to k equals a fetch-k row
+        fetch = max(k, *rescore_grid)
+
+        def run(nprobe: int, rescore: int,
+                exhaustive: bool = False) -> List[List[Tuple[str, float]]]:
+            if exhaustive:
+                # the exact oracle in one pass over the lists per batch
+                rows = idx.search_batch(queries, fetch,
+                                        mask=(idx.valid.cpu().numpy(), None),
+                                        exhaustive=True)
+            else:
+                rows = idx.search_batch(queries, fetch, nprobe=nprobe)
+            if rescore:
+                rows = self.engine._host_rescore_rows(queries, rows, k)
+            return [row[:k] for row in rows]
+
+        use_exh = bool(getattr(idx, "supports_exhaustive_mask", False)
+                       and getattr(idx, "valid", None) is not None)
+        oracle_rows = run(idx.nlist, max(rescore_grid), exhaustive=use_exh)
+        oracle = [frozenset(h[0] for h in row) for row in oracle_rows]
+        denom = sum(len(w) for w in oracle) or 1
+
+        def recall_of(rows) -> float:
+            return sum(len({h[0] for h in row} & want)
+                       for row, want in zip(rows, oracle)) / denom
+
+        chosen = (idx.nlist, rescore_grid[-1])
+        chosen_recall = 1.0
+        cand = 1
+        table = []
+        while cand <= idx.nlist:
+            found = False
+            for rescore in rescore_grid:
+                rec = recall_of(run(cand, rescore))
+                table.append({"nprobe": cand, "host_rescore": rescore,
+                              "recall": round(rec, 4)})
+                if rec >= target_recall:
+                    chosen = (cand, rescore)
+                    chosen_recall = rec
+                    found = True
+                    break
+            if found or cand == idx.nlist:
+                break
+            cand = min(cand * 2, idx.nlist)
+        idx.nprobe = chosen[0]
+        self.config.query.host_rescore = chosen[1]
+        return {"nprobe": chosen[0], "host_rescore": chosen[1],
+                "recall": round(chosen_recall, 4), "protocol": "held_out",
+                "sweep": table}
 
     def close(self) -> None:
         self._closed = True

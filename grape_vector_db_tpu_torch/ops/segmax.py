@@ -26,16 +26,11 @@ launch adds one to ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from grape_vector_db_tpu_torch.ops import _build
 from grape_vector_db_tpu_torch.ops.distance import f32_dots, prepare_queries
 
 __all__ = ["SEG", "CB", "LAUNCHES", "reset_launch_counts", "build_kernels",
@@ -60,63 +55,20 @@ def reset_launch_counts() -> None:
 
 # -- building and binding the CUDA kernels -------------------------------------
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "segmax.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
-#: What the last build did: library path, seconds, compiler log (ptxas -v).
-BUILD_INFO: Dict[str, object] = {}
+#: What the build did: library path, seconds, compiler log (ptxas -v).
+BUILD_INFO: Dict[str, object] = _build.BUILD_INFO.setdefault("segmax", {})
 
 
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc:
-        return nvcc
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    nvcc = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(nvcc):
-        return nvcc
-    raise RuntimeError(
-        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the segment "
-        "top-k CUDA kernels are built from csrc/segmax.cu at first use and "
-        "need the CUDA toolkit")
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.gvdb_segmax.restype = ctypes.c_int
+    lib.gvdb_segmax.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
 
 
 def build_kernels() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        with open(_SRC, "rb") as f:
-            src = f.read()
-        key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = os.path.join(_BUILD_DIR, f"libgvdb_segmax_{key}.so")
-        t0 = time.perf_counter()
-        log = ""
-        if not os.path.exists(so):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.tmp.{os.getpid()}"
-            proc = subprocess.run([_find_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
-                                  capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {_SRC}:\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        lib.gvdb_segmax.restype = ctypes.c_int
-        lib.gvdb_segmax.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p])
-        lib.gvdb_cuda_error_string.restype = ctypes.c_char_p
-        lib.gvdb_cuda_error_string.argtypes = [ctypes.c_int]
-        BUILD_INFO.update(library=so, seconds=time.perf_counter() - t0, log=log)
-        _LIB = lib
-        return lib
+    """Build (once per source hash) and load ``csrc/segmax.cu``."""
+    return _build.load("segmax", _bind)
 
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
