@@ -16,18 +16,30 @@ the port's paths through ``VectorDatabase`` on the card:
   nlist 4096, nprobe 16): ``ivf`` runs B3, ``ivf_int8`` B4 and ``ivf_int4``
   B5 (``csrc/ivf_probe.cu``) through ingest, search before and after
   ``optimize()``, filtered search on both planner routes, the streaming
-  exhaustive tier, deletes and search again, each against numpy oracles.
+  exhaustive tier, deletes and search again, each against numpy oracles;
+- the binary kind at 1,048,576 x 768 on the flat path's Gaussian corpus:
+  ``VectorDatabase(kind="binary")`` with its defaults (asym prescan) and a
+  ``BinaryDeviceIndex(hamming_impl="popcount", prescan="hamming")``, whose
+  prescan runs B6 (``csrc/hamming.cu``), with Hamming-only search, the
+  codes-only configuration, a filtered search and deletes;
+- the kernel-free kinds at 262,144 rows each (a cut of scale, for the time
+  limit): ``int8`` and ``pq`` on the Gaussian corpus, ``ivf_pq`` with each
+  resident plane on the clustered IVF corpus (nlist 1024), and the projected
+  ``ivf_int8_proj`` / ``ivf_int4_proj`` (R = 384, B4/B5) on a low-rank
+  corpus.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Every phase raises on failure. Earlier lines report each phase;
-the line before the last is a JSON object with one entry per kernel; the last
-line is the JSON result. Without a CUDA device, or without the repository
+the line before the last is a JSON object with one entry per kernel (B4/B5's
+entries carry their launches on the IVF path; the projected path's own run
+at D = 384 sits under their "d384" key); the last line is the JSON result. Without a CUDA device, or without the repository
 beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import itertools
 import json
 import re
 import statistics
@@ -53,10 +65,22 @@ NPROBE = 16               # the config default (config.py IndexConfig.nprobe)
 # the quantized kinds: the same corpus unless the run needs the time
 QUANT_ROWS = 1 << 20
 QUANT_NLIST = 4096
+# the binary kind: the flat path's corpus at full size
+BINARY_ROWS = N_ROWS
+HAMMING_CHECK_QUERIES = 16   # queries the numpy xor/popcount oracle checks
+# the kernel-free kinds: cut to 262,144 rows each for the time limit
+SMALL_ROWS = 1 << 18
+HAMMING_ROWS = 262_144    # B6's main shape: one scan chunk of the binary index
+IVFPQ_NLIST = 1024
+PROJ_DIM = 384
+LOWRANK_RANK = 320        # the low-rank corpus: a random 320-d subspace of R^768
+LOWRANK_SPREAD = 0.25     # within-cluster spread inside the subspace
+LOWRANK_NOISE = 0.02      # full-space noise
 
 DEV = "cuda"              # where the port's tensors live
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
 
 KERNELS = {
     # name: (source in the repo, the TPU kernel it replaces)
@@ -70,7 +94,10 @@ KERNELS = {
                        "grape_vector_db_tpu/ops/ivf_pallas.py:331"),
     "ivf_probe_int4": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
                        "grape_vector_db_tpu/ops/ivf_pallas.py:477"),
+    "hamming": ("grape_vector_db_tpu_torch/csrc/hamming.cu",
+                "grape_vector_db_tpu/ops/hamming_pallas.py:37"),
 }
+POPC_PER_CLOCK_PER_SM = 16  # __popc issue rate, CUDA programming guide, cc 9.0
 # IVF kind -> the probe kernel its main search runs
 IVF_KERNEL = {"ivf": "ivf_probe", "ivf_int8": "ivf_probe_int8", "ivf_int4": "ivf_probe_int4"}
 
@@ -107,11 +134,12 @@ def in_turns(kern, plain, reps_k=10, reps_p=5):
     return (k1, k2), (p1, p2)
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the bf16 tensor-core peak, whichever is larger."""
+    operations over their peak (bf16 tensor cores unless given), whichever
+    is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -123,10 +151,13 @@ def ptxas_summary(build_log: str):
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)E(\w+?)EEv", line)
         p = re.search(r"Compiling entry function '.*probe_kernelILi(\d)E+v", line)
+        h = re.search(r"Compiling entry function '.*hamming_kernel", line)
         if m:
             name = f"segmax{m[1]}<{'bf16' if 'bfloat16' in m[2] else 'f32'}>"
         elif p:
             name = f"ivf_probe<{fmts[p[1]]}>"
+        elif h:
+            name = "hamming"
         elif name and "spill stores" in line:
             spill = line.strip()
         elif name and "Used" in line and "registers" in line:
@@ -137,16 +168,17 @@ def ptxas_summary(build_log: str):
 
 
 def reset_counts():
-    from grape_vector_db_tpu_torch.ops import ivf, segmax
+    from grape_vector_db_tpu_torch.ops import hamming, ivf, segmax
 
     segmax.reset_launch_counts()
     ivf.reset_launch_counts()
+    hamming.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from grape_vector_db_tpu_torch.ops import ivf, segmax
+    from grape_vector_db_tpu_torch.ops import hamming, ivf, segmax
 
-    return {**segmax.LAUNCHES, **ivf.LAUNCHES}
+    return {**segmax.LAUNCHES, **ivf.LAUNCHES, **hamming.LAUNCHES}
 
 
 # -- set-up -----------------------------------------------------------------
@@ -161,18 +193,19 @@ def setup():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     log(smi)
-    from grape_vector_db_tpu_torch.ops import _build, ivf, segmax
+    from grape_vector_db_tpu_torch.ops import _build, hamming, ivf, segmax
 
     nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip().splitlines()[-1]
     log(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # one nvcc per source
-        for fut in [pool.submit(segmax.build_kernels), pool.submit(ivf.build_kernels)]:
+    builds = (segmax.build_kernels, ivf.build_kernels, hamming.build_kernels)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source
+        for fut in [pool.submit(b) for b in builds]:
             fut.result()
     log(f"[setup] kernels built in {time.perf_counter() - t0:.2f} s (in parallel)")
-    for name in ("segmax", "ivf_probe"):
+    for name in ("segmax", "ivf_probe", "hamming"):
         info = _build.BUILD_INFO[name]
         log(f"[setup] {name}: {info['library']}, {info['seconds']:.2f} s")
         for entry in ptxas_summary(str(info["log"])):
@@ -271,41 +304,125 @@ def probe_adversarial():
     """Every probe format against its plain version on small-integer data,
     so every sum is exact and every plane must be equal: ragged nblocks (0,
     an odd count, a count past the capacity), weights zeroed inside a list,
-    duplicate probe ids, C = 128."""
+    duplicate probe ids, C = 128; at D = 128 and at D = 384, the width the
+    projected kinds run B4/B5 at (int4: 192 packed bytes a row)."""
     from grape_vector_db_tpu_torch.ops import ivf as tivf
     from grape_vector_db_tpu_torch.ops.int4 import quantize_int4
 
     dev = torch.device(DEV)
-    rng = np.random.default_rng(SEED + 7)
-    n_lists, cap, d, b, p = 8, 128, 128, 40, 6
-    x = rng.integers(-3, 4, (n_lists, cap, d)).astype(np.float32)
-    q = torch.from_numpy(rng.integers(-3, 4, (b, d)).astype(np.float32)).to(dev)
-    nb = torch.tensor([2, 1, 0, 2, 1, 3, 2, 1], dtype=torch.int32, device=dev)
-    w = rng.choice([0.5, 1.0, 2.0], (n_lists, cap)).astype(np.float32)
-    w[0, 10:30] = 0.0
-    w[3, 64:70] = 0.0
-    w = torch.from_numpy(w).to(dev)
-    probe = torch.from_numpy(rng.integers(0, n_lists, (b, p)).astype(np.int32)).to(dev)
-    probe[:, 1] = probe[:, 0]                                    # duplicates
-    xt = torch.from_numpy(x).to(dev)
-    cases = [
-        ("ivf_probe", "bf16", tivf.ivf_probe_scores, tivf.ivf_probe_scores_ref,
-         xt.to(torch.bfloat16)),
-        ("ivf_probe", "f32", tivf.ivf_probe_scores, tivf.ivf_probe_scores_ref, xt),
-        ("ivf_probe_int8", "int8", tivf.ivf_probe_scores_int8, tivf.ivf_probe_scores_int8_ref,
-         xt.to(torch.int8)),
-        ("ivf_probe_int4", "int4", tivf.ivf_probe_scores_int4, tivf.ivf_probe_scores_int4_ref,
-         quantize_int4(xt.reshape(-1, d))[0].reshape(n_lists, cap, d // 2)),
-    ]
-    for name, fmt, kern, plain, data in cases:
-        got = kern(q, probe, data, w, nb)
-        torch.cuda.synchronize()
-        want = plain(q, probe, data, w, nb)
-        require(torch.equal(got, want), f"{name} {fmt}: adversarial scores differ "
-                f"(max {(got - want).abs().max().item()})")
-        require(bool((got[probe == 2] == -1e9).all()), f"{name} {fmt}: nblocks 0 not honoured")
-        log(f"[kernels] {name} {fmt} adversarial (ragged nblocks incl. 0, zero weights, "
-            f"duplicate probes, C={cap}, B={b}, P={p}): every score equal")
+    for d in (128, PROJ_DIM):
+        rng = np.random.default_rng(SEED + 7 + d)
+        n_lists, cap, b, p = 8, 128, 40, 6
+        x = rng.integers(-3, 4, (n_lists, cap, d)).astype(np.float32)
+        q = torch.from_numpy(rng.integers(-3, 4, (b, d)).astype(np.float32)).to(dev)
+        nb = torch.tensor([2, 1, 0, 2, 1, 3, 2, 1], dtype=torch.int32, device=dev)
+        w = rng.choice([0.5, 1.0, 2.0], (n_lists, cap)).astype(np.float32)
+        w[0, 10:30] = 0.0
+        w[3, 64:70] = 0.0
+        w = torch.from_numpy(w).to(dev)
+        probe = torch.from_numpy(rng.integers(0, n_lists, (b, p)).astype(np.int32)).to(dev)
+        probe[:, 1] = probe[:, 0]                                    # duplicates
+        xt = torch.from_numpy(x).to(dev)
+        cases = [
+            ("ivf_probe", "bf16", tivf.ivf_probe_scores, tivf.ivf_probe_scores_ref,
+             xt.to(torch.bfloat16)),
+            ("ivf_probe", "f32", tivf.ivf_probe_scores, tivf.ivf_probe_scores_ref, xt),
+            ("ivf_probe_int8", "int8", tivf.ivf_probe_scores_int8,
+             tivf.ivf_probe_scores_int8_ref, xt.to(torch.int8)),
+            ("ivf_probe_int4", "int4", tivf.ivf_probe_scores_int4,
+             tivf.ivf_probe_scores_int4_ref,
+             quantize_int4(xt.reshape(-1, d))[0].reshape(n_lists, cap, d // 2)),
+        ]
+        for name, fmt, kern, plain, data in cases:
+            got = kern(q, probe, data, w, nb)
+            torch.cuda.synchronize()
+            want = plain(q, probe, data, w, nb)
+            require(torch.equal(got, want), f"{name} {fmt} D={d}: adversarial scores differ "
+                    f"(max {(got - want).abs().max().item()})")
+            require(bool((got[probe == 2] == -1e9).all()),
+                    f"{name} {fmt} D={d}: nblocks 0 not honoured")
+            log(f"[kernels] {name} {fmt} adversarial (ragged nblocks incl. 0, zero weights, "
+                f"duplicate probes, C={cap}, B={b}, P={p}, D={d}): every score equal")
+
+
+# -- B6 against its plain version -------------------------------------------------
+
+
+def popcount_rate() -> float:
+    """Popcounts a second the card can issue: 16 a clock a SM at the
+    maximum SM clock nvidia-smi reports. The floor of a kernel that counts
+    with __popc, not the card's bound for the function."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6, sms, mhz
+
+
+def random_words(gen, rows: int, w: int, dev) -> torch.Tensor:
+    return torch.randint(-2**31, 2**31, (rows, w), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def hamming_phase():
+    """B6 against its plain version, integer for integer: at the main shape
+    (the binary index's 262,144-row scan chunk at B=128, D=768) and on
+    adversarial shapes and bit patterns; times the kernel, the plain
+    version and the mxu route (+-1 decode + torch.mm) in turns."""
+    from grape_vector_db_tpu_torch.ops import hamming
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, c, w = BATCH, HAMMING_ROWS, DIM // 32
+    q = random_words(gen, b, w, dev)
+    codes = random_words(gen, c, w, dev)
+    got = hamming.hamming_popcount(q, codes)
+    torch.cuda.synchronize()
+    want = hamming.hamming_scores_ref(q, codes)
+    require(torch.equal(got, want), "hamming: kernel and plain version differ at the main shape")
+    mxu = hamming.hamming_scores(q, codes, impl="mxu")
+    require(torch.equal(mxu, want), "hamming: the mxu route differs from the plain version")
+    log(f"[kernels] hamming [{b},{w}] x [{c},{w}] int32 words: equal to the plain version "
+        f"and to the mxu route, integer for integer")
+    patterns = {"zeros": 0, "ones": -1, "alternating": 0x55555555}
+    n_cases = 0
+    for bb, cc, ww in ((1, 1, 1), (129, c - 1, 24), (1, c - 1, 3), (129, 1, 3),
+                       (128, 4097, 1), (7, 513, 24)):
+        for pat in ("random", "zeros", "ones", "alternating"):
+            qq = random_words(gen, bb, ww, dev)
+            if pat == "random":
+                cw = random_words(gen, cc, ww, dev)
+            else:
+                cw = torch.full((cc, ww), patterns[pat], dtype=torch.int32, device=dev)
+                if pat == "alternating":
+                    cw[1::2] = ~cw[1::2]          # 0x55555555 / 0xAAAAAAAA rows
+                    qq[0] = cw[0]
+            g2 = hamming.hamming_popcount(qq, cw)
+            torch.cuda.synchronize()
+            require(torch.equal(g2, hamming.hamming_scores_ref(qq, cw)),
+                    f"hamming: B={bb} C={cc} W={ww} {pat}: kernel and plain version differ")
+            n_cases += 1
+    log(f"[kernels] hamming adversarial: {n_cases} cases (C = {c - 1:,}, 4097, 513 and 1; "
+        f"W = 1, 3, 24; B = 1, 7, 128, 129; random, all-zero, all-one, alternating words): "
+        f"every distance equal")
+    (k1, k2), (p1, p2) = in_turns(lambda: hamming.hamming_popcount(q, codes),
+                                  lambda: hamming.hamming_scores_ref(q, codes), 20, 3)
+    l1 = cuda_ms(lambda: hamming.hamming_scores(q, codes, impl="mxu"), 10)
+    # The same distances are a +-1 product (dot = D - 2 * hamming, exact in
+    # int8 with int32 sums): 2 operations a bit pair at the int8 tensor-core peak.
+    nbytes = b * w * 4 + c * w * 4 + b * c * 4
+    ops = 2.0 * b * c * w * 32
+    stats = {"max_abs_err": 0.0, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+             **bound(nbytes, ops, INT8_OPS_PER_S), "library_ms": l1}
+    rate, sms, mhz = popcount_rate()
+    t_popc = b * c * w / rate * 1e3
+    log(f"[times] hamming: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, mxu "
+        f"route (decode + torch.mm) {l1:.4f} ms; bound {stats['bound_ms']:.4f} ms by "
+        f"{stats['bound_by']} (bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {ops:.3g} "
+        f"+-1 int8 operations {ops / INT8_OPS_PER_S * 1e3:.4f} ms); this design's __popc "
+        f"issue floor {t_popc:.4f} ms ({b * c * w:.3g} popcounts at {POPC_PER_CLOCK_PER_SM} a "
+        f"clock x {sms} SMs x {mhz:.0f} MHz) (B={b}, C={c}, W={w})")
+    return stats
 
 
 # -- the flat path ----------------------------------------------------------------
@@ -367,11 +484,12 @@ def check_hits(name, hits, o_vals, o_ids, k, exclude=frozenset()):
                     f"{name} q{r}: score of {i} {got[i]} vs oracle {ref[i]}")
 
 
-def timed_searches(db, queries, reps=20):
+def timed(fn, reps=20):
+    """Median host seconds of fn() over reps calls."""
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        db.vector_search_batch(queries, 10)
+        fn()
         times.append(time.perf_counter() - t0)
     return statistics.median(times)
 
@@ -444,7 +562,7 @@ def flat_path():
     log(f"[flat] all answers agree with the numpy oracle (f32 cosine over the "
         f"bf16-rounded corpus, tolerance {TOL}); near-document queries found their "
         f"document first {top1}/{BATCH // 2}")
-    med = timed_searches(db, queries)
+    med = timed(lambda: db.vector_search_batch(queries, 10))
     log(f"[times] flat vector_search_batch B={BATCH} k=10 at {N_ROWS - 1000} documents: "
         f"median {med * 1e3:.3f} ms of 20 ({BATCH / med:.0f} queries/s); "
         f"ingest {N_ROWS / ingest_s:.0f} docs/s")
@@ -777,7 +895,7 @@ def ivf_path(kind: str, corpus: Clustered, nlist: int):
     log(f"{tag} recall@10 at nprobe {NPROBE} against the full flat oracle: "
         f"{recall_full(batch, corpus, np.ones(rows, bool)):.4f}")
 
-    med = timed_searches(db, corpus.queries)
+    med = timed(lambda: db.vector_search_batch(corpus.queries, 10))
     log(f"[times] {kind} vector_search_batch B={BATCH} k=10 at {rows - 1000} documents: "
         f"median {med * 1e3:.3f} ms of 20 ({BATCH / med:.0f} queries/s); ingest "
         f"{rows / ingest_s:.0f} docs/s; optimize {optimize_s:.2f} s")
@@ -787,11 +905,462 @@ def ivf_path(kind: str, corpus: Clustered, nlist: int):
     return launches[kname], stats
 
 
+# -- the binary kind ----------------------------------------------------------------
+
+
+def bf16_rows(x: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def exact_scores(qn: np.ndarray, x: np.ndarray, rows) -> np.ndarray:
+    """f32 cosine of each unit query against the bf16-rounded rows ``rows``."""
+    xr = bf16_rows(x[rows])
+    return (xr @ qn.T).T / np.linalg.norm(xr, axis=1)[None, :]
+
+
+def prescan_keys(kind: str, queries: np.ndarray, x: np.ndarray, alive: np.ndarray):
+    """Per query, the stage-1 score of every row on the card, computed from
+    the rows' signs with plain f32 products (not the port's packed codes):
+    ``"hamming"`` gives int64 keys d << 32 | row (smaller first, ties on the
+    lower row, as the index selects); ``"asym"`` gives bf16(q_unit) . sign(x)
+    (larger first). Rows not ``alive`` get the worst key."""
+    dev = torch.device(DEV)
+    qt = torch.from_numpy(queries).to(dev)
+    if kind == "hamming":
+        qs = torch.where(qt > 0, 1.0, -1.0)
+    else:
+        qs = torch.nn.functional.normalize(qt, dim=1).to(torch.bfloat16).float()
+    out = []
+    alive_t = torch.from_numpy(alive).to(dev)
+    for off in range(0, len(x), 65536):
+        xs = torch.where(torch.from_numpy(x[off:off + 65536]).to(dev) > 0, 1.0, -1.0)
+        dots = qs @ xs.T
+        ok = alive_t[off:off + 65536][None, :]
+        if kind == "hamming":
+            d = ((x.shape[1] - dots) * 0.5).round().to(torch.int64)
+            rows = torch.arange(off, off + xs.shape[0], device=dev)[None, :]
+            out.append(torch.where(ok, (d << 32) | rows, torch.iinfo(torch.int64).max))
+        else:
+            out.append(torch.where(ok, dots, float("-inf")))
+    return torch.cat(out, dim=1)
+
+
+def check_candidates(name, hits, keys, kind: str, r: int, tol=1e-3):
+    """Every returned row lies among the top-r of the prescan oracle: for
+    Hamming exactly (integers, the same tie rule), for the asymmetric
+    prescan within ``tol`` of the r-th score (f32 sums in another order)."""
+    if kind == "hamming":
+        kth = torch.topk(keys, r, dim=1, largest=False).values[:, -1].cpu().numpy()
+    else:
+        kth = torch.topk(keys, r, dim=1).values[:, -1].cpu().numpy()
+    k_np = keys.cpu().numpy()
+    for qi, row in enumerate(hits):
+        for i, _ in row:
+            ok = k_np[qi, i] <= kth[qi] if kind == "hamming" else k_np[qi, i] >= kth[qi] - tol
+            require(bool(ok), f"{name} q{qi}: row {i} is not among the prescan's top {r}")
+
+
+def check_exact_scores(name, hits, qn, x, tol=TOL):
+    for qi, row in enumerate(hits):
+        rows = [i for i, _ in row]
+        want = exact_scores(qn[qi:qi + 1], x, rows)[0]
+        for (i, s), w_ in zip(row, want):
+            require(abs(s - float(w_)) <= tol, f"{name} q{qi}: score of {i} {s} vs exact {w_}")
+
+
+def recall_at(hits, o_ids, k=10, exclude=frozenset()):
+    found = 0
+    for row, ids in zip(hits, o_ids):
+        want = [int(i) for i in ids if int(i) not in exclude][:k]
+        found += len({i for i, _ in row} & set(want))
+    return found / (k * len(hits))
+
+
+def numpy_hamming_top(x: np.ndarray, queries: np.ndarray, k: int, alive: np.ndarray):
+    """numpy xor/popcount oracle: per query the k smallest (distance, row)."""
+    packed = np.packbits(x > 0, axis=1, bitorder="little")          # [N, D/8]
+    table = np.array([bin(v).count("1") for v in range(256)], np.uint8)
+    out = []
+    for q in queries:
+        qp = np.packbits(q > 0, bitorder="little")
+        d = table[packed ^ qp].sum(axis=1, dtype=np.int64)
+        d = np.where(alive, d, 2**40)
+        top = np.lexsort((np.arange(len(d)), d))[:k]
+        out.append([(int(i), int(d[i])) for i in top])
+    return out
+
+
+def binary_path():
+    """The binary kind at 1,048,576 x 768 on the flat path's Gaussian corpus."""
+    from grape_vector_db_tpu_torch import (Condition, Document, Filter, SearchRequest,
+                                           VectorDatabase, VectorDbConfig)
+    from grape_vector_db_tpu_torch.index import BinaryDeviceIndex
+    from grape_vector_db_tpu_torch.ops.hamming import hamming_topk, pack_bits
+
+    rows = BINARY_ROWS
+    x = np.concatenate([b for _, b in corpus_batches()])[:rows]
+    group = np.arange(rows) % 10
+    rng = np.random.default_rng(SEED + 5)
+    near = rng.choice(rows, BATCH // 2, replace=False)
+    queries = np.concatenate([
+        x[near] + 0.5 * rng.standard_normal((BATCH // 2, DIM), dtype=np.float32),
+        rng.standard_normal((BATCH // 2, DIM), dtype=np.float32)])
+    qn = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+    cfg = VectorDbConfig(vector_dimension=DIM)
+    cfg.index.kind = "binary"
+    db = VectorDatabase(config=cfg, device=DEV)
+    idx = db.index
+    log(f"[binary] VectorDatabase: {rows} rows, prescan {idx.prescan}, hamming_impl "
+        f"{idx.hamming_impl}, rescore_ratio {idx.rescore_ratio}, max_rescore {idx.max_rescore}")
+
+    reset_counts()
+    ingest_s = 0.0
+    for start in range(0, rows, INGEST_BATCH):
+        xb = x[start:start + INGEST_BATCH]
+        docs = [Document(id=f"doc{start + i}", content=f"doc {(start + i) % 997}",
+                         vector=xb[i], metadata={"g": int(group[start + i])})
+                for i in range(len(xb))]
+        t0 = time.perf_counter()
+        db.batch_add_documents(docs)
+        ingest_s += time.perf_counter() - t0
+    pop = BinaryDeviceIndex(DIM, hamming_impl="popcount", prescan="hamming", device=DEV)
+    codes_only = BinaryDeviceIndex(DIM, keep_vectors=False, prescan="hamming", device=DEV)
+    t0 = time.perf_counter()
+    for start in range(0, rows, INGEST_BATCH):
+        ids = [f"doc{i}" for i in range(start, min(start + INGEST_BATCH, rows))]
+        pop.add_batch(ids, x[start:start + INGEST_BATCH])
+        codes_only.add_batch(ids, x[start:start + INGEST_BATCH])
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    require(len(idx) == len(pop) == len(codes_only) == rows, "binary: row counts differ")
+
+    r = idx._rescore_count(10)
+    asym_hits = to_rows(db.vector_search_batch(queries, 10))
+    pop_hits = to_rows(pop.search_batch(queries, 10))
+    ham_only = to_rows(pop.hamming_only_topk(queries, 10))
+    codes_hits = to_rows(codes_only.search_batch(queries, 10))
+    filt = Filter(must=[Condition("g", "eq", 3)])
+    filtered = [to_rows([db.vector_search(SearchRequest(vector=queries[i].tolist(), limit=10,
+                                                        filter=filt))])[0] for i in range(4)]
+    doomed = list(dict.fromkeys(i for row in asym_hits + pop_hits for i, _ in row))[:1000]
+    taken = set(doomed)
+    doomed += [i for i in range(rows) if i not in taken][:1000 - len(doomed)]
+    n_del = db.batch_delete_documents([f"doc{i}" for i in doomed])
+    require(n_del == 1000 and pop.remove_batch([f"doc{i}" for i in doomed]) == 1000,
+            "binary: delete count")
+    after = to_rows(db.vector_search_batch(queries, 10))
+    pop_after = to_rows(pop.search_batch(queries, 10))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[binary] ingested {rows} through VectorDatabase in {ingest_s:.2f} s "
+        f"({rows / ingest_s:.0f} docs/s); the popcount and codes-only indexes by add_batch "
+        f"in {direct_s:.2f} s; searches done (B={BATCH} k=10: asym two-stage, popcount "
+        f"two-stage, Hamming-only, codes-only; 4 x filtered 10%; deleted 1000, both "
+        f"two-stage again); kernel launches {launches}")
+    require(launches["hamming"] > 0, "the binary popcount path never launched hamming")
+
+    # oracles
+    (o_vals, o_ids), (f_vals, f_ids) = oracle(corpus_batches(), queries, lambda rr: rr % 10)
+    alive = np.ones(rows, bool)
+    k_asym = prescan_keys("asym", queries, x, alive)
+    check_candidates("asym two-stage", asym_hits, k_asym, "asym", r)
+    check_exact_scores("asym two-stage", asym_hits, qn, x)
+    k_ham = prescan_keys("hamming", queries, x, alive)
+    check_candidates("popcount two-stage", pop_hits, k_ham, "hamming", pop._rescore_count(10))
+    check_exact_scores("popcount two-stage", pop_hits, qn, x)
+    # Hamming-only: the ids of the prescan oracle's top 10, similarity 1 - d/D
+    top10 = torch.topk(k_ham, 10, dim=1, largest=False).values.cpu().numpy()
+    for qi, row in enumerate(ham_only):
+        want = [(int(kk & 0xFFFFFFFF), 1.0 - float(kk >> 32) / DIM) for kk in top10[qi]]
+        require(row == want, f"hamming-only q{qi}: {row[:3]} vs oracle {want[:3]}")
+    require([[i for i, _ in row] for row in codes_hits] == [[i for i, _ in row] for row in ham_only]
+            and all(abs(a[1] - b[1]) <= 1e-6 for ra, rb in zip(codes_hits, ham_only)
+                    for a, b in zip(ra, rb)),
+            "codes-only (mxu) and Hamming-only (popcount) differ")
+    for qi, want in enumerate(numpy_hamming_top(x, queries[:HAMMING_CHECK_QUERIES], 10, alive)):
+        require([(i, 1.0 - dd / DIM) for i, dd in want] == ham_only[qi],
+                f"hamming-only q{qi} differs from the numpy xor/popcount oracle")
+    del k_ham
+    g3 = group == 3
+    k_f = prescan_keys("asym", queries[:4], x, g3)
+    check_candidates("filtered 10%", filtered, k_f, "asym", r)
+    check_exact_scores("filtered 10%", filtered, qn[:4], x)
+    require(all(i % 10 == 3 for row in filtered for i, _ in row) and
+            all(len(row) == 10 for row in filtered), "binary: a filtered result broke the filter")
+    gone = frozenset(doomed)
+    alive[list(gone)] = False
+    for name, hits in (("asym after delete", after), ("popcount after delete", pop_after)):
+        require(not any(i in gone for row in hits for i, _ in row),
+                f"{name}: a deleted id came back")
+        check_exact_scores(name, hits, qn, x)
+    check_candidates("asym after delete", after, prescan_keys("asym", queries, x, alive),
+                     "asym", idx._rescore_count(10))
+    check_candidates("popcount after delete", pop_after,
+                     prescan_keys("hamming", queries, x, alive), "hamming",
+                     pop._rescore_count(10))
+    log(f"[binary] answers agree with the oracles: every two-stage id lies among its "
+        f"prescan's top {r} (the asym prescan within 1e-3 of the {r}-th score) with its exact "
+        f"score (tolerance {TOL}); Hamming-only equals the sign-product oracle on {BATCH} "
+        f"queries and numpy's xor/popcount on {HAMMING_CHECK_QUERIES}; codes-only (mxu) "
+        f"equals Hamming-only (popcount); the filter holds; deleted ids never return")
+    log(f"[binary] recall@10 against the flat oracle: asym two-stage "
+        f"{recall_at(asym_hits, o_ids):.4f}, popcount Hamming two-stage "
+        f"{recall_at(pop_hits, o_ids):.4f}, Hamming-only {recall_at(ham_only, o_ids):.4f}; "
+        f"filtered 10% {recall_at(filtered, f_ids):.4f}; after delete "
+        f"{recall_at(after, o_ids, exclude=gone):.4f} / {recall_at(pop_after, o_ids, exclude=gone):.4f}")
+
+    med = timed(lambda: db.vector_search_batch(queries, 10))
+    med_pop = timed(lambda: pop.search_batch(queries, 10))
+    med_ham = timed(lambda: pop.hamming_only_topk(queries, 10))
+    qt = torch.from_numpy(queries).to(DEV)
+    codes_t = pop.codes
+    qcodes = pack_bits(qt, pop.threshold)
+    dev_ms = cuda_ms(lambda: hamming_topk(qcodes, codes_t, pop.valid, k=pop._rescore_count(10),
+                                          chunk=pop._scan_chunk(), impl="popcount"), 10)
+    log(f"[times] binary vector_search_batch B={BATCH} k=10 at {rows - 1000} documents "
+        f"(asym, mxu): median {med * 1e3:.3f} ms of 20 ({BATCH / med:.0f} queries/s); "
+        f"popcount two-stage search_batch {med_pop * 1e3:.3f} ms; Hamming-only "
+        f"{med_ham * 1e3:.3f} ms; the popcount prescan's device span "
+        f"({-(-pop.capacity // pop._scan_chunk())} B6 chunks + selection, "
+        f"r={pop._rescore_count(10)}) {dev_ms:.3f} ms; ingest "
+        f"{rows / ingest_s:.0f} docs/s")
+    db.close()
+    return launches["hamming"]
+
+
+# -- the kernel-free kinds at 262,144 rows -------------------------------------------
+
+
+class SmallCorpus:
+    """One corpus of the kernel-free kinds: rows, a query batch (half stored
+    rows plus noise, half fresh points), and the oracle's f32 cosine of every
+    query against every bf16-rounded row."""
+
+    def __init__(self, name: str, x: np.ndarray, queries: np.ndarray):
+        self.name, self.x, self.queries, self.rows = name, x, queries, len(x)
+        self.qn = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+        self.scores = np.empty((len(queries), len(x)), np.float32)
+        for off in range(0, len(x), 65536):
+            self.scores[:, off:off + 65536] = exact_scores(self.qn, x, slice(off, off + 65536))
+        self.top = np.argpartition(-self.scores, 9, axis=1)[:, :10]
+
+
+def small_corpora():
+    rng = np.random.default_rng(SEED + 9)
+    n = SMALL_ROWS
+    gauss = np.concatenate([b for _, b in itertools.islice(corpus_batches(),
+                                                           n // INGEST_BATCH)])
+    near = rng.choice(n, BATCH // 2, replace=False)
+    gq = np.concatenate([gauss[near] + 0.5 * rng.standard_normal((BATCH // 2, DIM),
+                                                                 dtype=np.float32),
+                         rng.standard_normal((BATCH // 2, DIM), dtype=np.float32)])
+    clustered = Clustered(n)
+    basis = np.linalg.qr(rng.standard_normal((DIM, LOWRANK_RANK)))[0].astype(np.float32)
+    centres = rng.standard_normal((IVF_CENTRES, LOWRANK_RANK), dtype=np.float32)
+
+    def low_rank(m, cid):
+        z = centres[cid] + LOWRANK_SPREAD * rng.standard_normal((m, LOWRANK_RANK),
+                                                                dtype=np.float32)
+        return z @ basis.T + LOWRANK_NOISE * rng.standard_normal((m, DIM), dtype=np.float32)
+
+    low = np.concatenate([low_rank(INGEST_BATCH, rng.integers(0, IVF_CENTRES, INGEST_BATCH))
+                          for _ in range(n // INGEST_BATCH)])
+    lnear = rng.choice(n, BATCH // 2, replace=False)
+    lq = np.concatenate([low[lnear] + LOWRANK_NOISE * rng.standard_normal(
+        (BATCH // 2, DIM), dtype=np.float32),
+        low_rank(BATCH // 2, rng.integers(0, IVF_CENTRES, BATCH // 2))])
+    return (SmallCorpus("gaussian", gauss, gq),
+            SmallCorpus("clustered", clustered.x, clustered.queries),
+            SmallCorpus("low-rank", low.astype(np.float32), lq.astype(np.float32)))
+
+
+def quant_oracle(kind: str, idx, corpus: SmallCorpus):
+    """(candidate check, score of (query, row)) of the kind's own ranking, from
+    numpy over the index's planes read back:
+    - int8 / pq: the prescan's scores, whose top r hold every returned row,
+      and the exact cosine (the rescore is exact);
+    - ivf_pq: the rows of the probed lists (and the overflow region), and the
+      resident plane's score (bf16: exact; int8: bf16 query x dequantized
+      row; none: ADC over the decoded row);
+    - the projected kinds: the probed lists in the projected space, and the
+      cosine of the projected query against the bf16 projected row."""
+    qn, x = corpus.qn, corpus.x
+    if kind == "int8":
+        codes = idx.codes.cpu().numpy().astype(np.float32)
+        factor = (idx.scales / torch.clamp(idx.norms, min=1e-12)).cpu().numpy()
+        qs = np.abs(qn).max(axis=1, keepdims=True) * np.float32(1.0 / 127.0)
+        qi = np.clip(np.round(qn / qs), -127, 127)
+        pre = (qi @ codes.T) * factor[None, :] * qs
+        return ("prescan", pre, idx._rescore_count(10)), None
+    if kind == "pq":
+        cb = idx.codebooks.cpu().numpy()
+        codes = idx.codes.cpu().numpy().astype(np.int64)
+        dec = cb[np.arange(idx.n_sub)[None, :], codes].reshape(len(codes), DIM)
+        pre = (qn @ dec.T) / np.maximum(idx.norms.cpu().numpy()[None, :], 1e-12)
+        return ("prescan", pre, idx._rescore_count(10)), None
+    proj = kind.endswith("_proj")
+    cents = idx.centroids.float().cpu().numpy()
+    qsp = qn
+    if proj:
+        p = idx.proj.cpu().numpy()
+        qsp = qn @ p
+        qsp = qsp / np.linalg.norm(qsp, axis=1, keepdims=True)
+    cell = {int(id_[3:]): c for id_, c in idx._id_to_cell.items()}
+    over = {int(id_[3:]) for id_ in idx._overflow._id_to_slot}
+
+    def in_probe(qi, row):
+        """The row's list is among the query's top nprobe (or within 1e-5 of
+        the nprobe-th centroid score: a near tie of the list choice)."""
+        if row in over:
+            return True
+        cs = qsp[qi] @ cents.T
+        return bool(cs[cell[row][0]] >= np.sort(cs)[-NPROBE] - 1e-5)
+
+    def score(qi, row):
+        if row in over or (kind == "ivf_pq" and idx.resident == "bf16"):
+            xr = x[row] @ p if proj and row in over else x[row]
+            return float(exact_scores(qsp[qi:qi + 1] if proj else qn[qi:qi + 1],
+                                      xr[None, :], [0])[0, 0])
+        lst, pos = cell[row]
+        lt = torch.tensor([lst], device=idx.device)
+        pt = torch.tensor([pos], device=idx.device)
+        if proj:       # rescored against the bf16 shadow of the projected row
+            xr = idx.vecs[lt, pt].float().cpu().numpy()[0]
+            return float((xr @ qsp[qi]) / np.linalg.norm(xr))
+        nrm = float(idx.norms[lt, pt])
+        if idx.resident == "int8":
+            xr = idx._rows_at(lt, pt).cpu().numpy()[0]
+            qb = bf16_rows(qn[qi:qi + 1])[0]
+            return min(float(qb @ xr) / nrm, 1.0)
+        xr = idx._rows_at(lt, pt).cpu().numpy()[0]        # ADC: the decoded row
+        return float(qn[qi] @ xr) / nrm
+    return ("probe", in_probe, None), score
+
+
+def check_quant(kind, idx, corpus, hits):
+    """Every returned row passes the kind's candidate check and carries the
+    oracle's score for it (within TOL); returns recall@10 against the flat
+    oracle."""
+    (mode, cand, r), score = quant_oracle(kind, idx, corpus)
+    for qi, row in enumerate(hits):
+        require(len(row) == 10 and len({i for i, _ in row}) == 10,
+                f"{kind} q{qi}: {len(row)} hits, duplicates?")
+        if mode == "prescan":
+            kth = np.sort(cand[qi])[-r]
+            for i, s in row:
+                require(cand[qi, i] >= kth - 1e-3, f"{kind} q{qi}: row {i} is not among the "
+                        f"prescan's top {r}")
+                require(abs(s - float(corpus.scores[qi, i])) <= TOL,
+                        f"{kind} q{qi}: score of {i} {s} vs exact {corpus.scores[qi, i]}")
+        else:
+            for i, s in row:
+                require(cand(qi, i), f"{kind} q{qi}: row {i} lies in no probed list")
+                want = score(qi, i)
+                require(abs(s - want) <= TOL, f"{kind} q{qi}: score of {i} {s} vs oracle {want}")
+    return recall_at(hits, corpus.top)
+
+
+SMALL_KINDS = [
+    # (label, kind, corpus, config updates, the probe kernel the path runs)
+    ("int8", "int8", "gaussian", {}, None),
+    ("pq", "pq", "gaussian", {}, None),
+    ("ivf_pq bf16", "ivf_pq", "clustered", {"pq_resident": "bf16"}, None),
+    ("ivf_pq int8", "ivf_pq", "clustered", {"pq_resident": "int8"}, None),
+    ("ivf_pq none", "ivf_pq", "clustered", {"pq_resident": "none"}, None),
+    ("ivf_int8_proj", "ivf_int8_proj", "low-rank", {}, "ivf_probe_int8"),
+    ("ivf_int4_proj", "ivf_int4_proj", "low-rank", {}, "ivf_probe_int4"),
+]
+
+
+def small_kind_path(label, kind, corpus, updates, kname):
+    from grape_vector_db_tpu_torch import Document, VectorDatabase, VectorDbConfig
+
+    cfg = VectorDbConfig(vector_dimension=DIM)
+    cfg.index.kind = kind
+    cfg.index.nlist = IVFPQ_NLIST
+    cfg.index.nprobe = NPROBE
+    cfg.index.proj_dim = PROJ_DIM
+    for key, val in updates.items():
+        setattr(cfg.index, key, val)
+    db = VectorDatabase(config=cfg, device=DEV)
+    idx = db.index
+    reset_counts()
+    t0 = time.perf_counter()
+    for start in range(0, corpus.rows, INGEST_BATCH):
+        xb = corpus.x[start:start + INGEST_BATCH]
+        db.batch_add_documents([Document(id=f"doc{start + i}", content=f"doc {start + i}",
+                                         vector=xb[i]) for i in range(len(xb))])
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db.optimize()
+    torch.cuda.synchronize()
+    optimize_s = time.perf_counter() - t0
+    hits = to_rows(db.vector_search_batch(corpus.queries, 10))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    rec = check_quant(kind, idx, corpus, hits)
+    med = timed(lambda: db.vector_search_batch(corpus.queries, 10))
+    extra = ""
+    if kind.endswith("_proj"):
+        extra = f", retained energy {idx.proj_energy:.4f}"
+        require(launches[kname] > 0, f"{label}: the path never launched {kname}")
+    log(f"[{label}] {corpus.rows} rows ({corpus.name} corpus; cut from 1M for the time "
+        f"limit): ingest {corpus.rows / ingest_s:.0f} docs/s, optimize() {optimize_s:.2f} s"
+        f"{extra}; every returned row passes the oracle; recall@10 against the flat oracle "
+        f"{rec:.4f}; kernel launches {launches}")
+    log(f"[times] {label} vector_search_batch B={BATCH} k=10: median {med * 1e3:.3f} ms of 20 "
+        f"({BATCH / med:.0f} queries/s)")
+    stats = None
+    if kname is not None:
+        stats = proj_probe_shapes(kname, idx, corpus)
+    db.close()
+    return launches, stats
+
+
+def proj_probe_shapes(name, idx, corpus):
+    """B4/B5 against their plain versions at the projected index's shapes
+    (D = R = 384), timed in turns, with the bound."""
+    from grape_vector_db_tpu_torch.ops import ivf as tivf
+
+    kern, plain = ((tivf.ivf_probe_scores_int8, tivf.ivf_probe_scores_int8_ref)
+                   if name == "ivf_probe_int8"
+                   else (tivf.ivf_probe_scores_int4, tivf.ivf_probe_scores_int4_ref))
+    qt = torch.from_numpy(corpus.queries).to(DEV) @ idx.proj
+    qp = torch.nn.functional.normalize(qt, dim=1)
+    probe = torch.topk(qp @ idx.centroids.T, NPROBE, dim=1).indices.to(torch.int32)
+    nb = idx._nblocks()
+    data, w = idx.codes, idx.factor
+    got = kern(qp, probe, data, w, nb)
+    torch.cuda.synchronize()
+    want = plain(qp, probe, data, w, nb)
+    inv = want == -1e9
+    require(torch.equal(got == -1e9, inv), f"{name} D={PROJ_DIM}: -1e9 positions differ")
+    err = (got - want)[~inv].abs().max().item()
+    require(err <= TOL, f"{name} D={PROJ_DIM}: max |score diff| {err} > {TOL}")
+    (k1, k2), (p1, p2) = in_turns(lambda: kern(qp, probe, data, w, nb),
+                                  lambda: plain(qp, probe, data, w, nb))
+    n_lists, cap = w.shape
+    lim = torch.clamp(nb.long() * 64, max=cap)
+    live = (w != 0) & (torch.arange(cap, device=w.device)[None, :] < lim[:, None])
+    per_list = live.sum(dim=1)
+    row_bytes = data.shape[2] + 4
+    unique = int(per_list[torch.unique(probe.long())].sum()) * row_bytes
+    ops = 2.0 * int(per_list[probe.long()].sum()) * PROJ_DIM
+    b = bound(unique + BATCH * PROJ_DIM * 4 + BATCH * NPROBE * cap * 4, ops)
+    log(f"[kernels] {name} at D={PROJ_DIM}: q [{BATCH},{PROJ_DIM}] x probe [{BATCH},{NPROBE}] "
+        f"over [{n_lists},{cap},{data.shape[2]}] {data.dtype}: max_abs_err {err:.3g}")
+    log(f"[times] {name} D={PROJ_DIM}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+        f"{p2:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b,
+            "library_ms": None}
+
+
 def main():
     t_start = time.perf_counter()
     setup()
     kernel_stats = segmax_phase()
     probe_adversarial()
+    kernel_stats["hamming"] = hamming_phase()
     torch.cuda.empty_cache()
     launches = flat_path()
     torch.cuda.empty_cache()
@@ -806,6 +1375,18 @@ def main():
     for kind in ("ivf_int8", "ivf_int4"):
         name = IVF_KERNEL[kind]
         launches[name], kernel_stats[name] = ivf_path(kind, corpus, QUANT_NLIST)
+        torch.cuda.empty_cache()
+        log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
+    del corpus
+    launches["hamming"] = binary_path()
+    torch.cuda.empty_cache()
+    log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
+    corpora = {c.name: c for c in small_corpora()}
+    for label, kind, cname, updates, kname in SMALL_KINDS:
+        counts, stats = small_kind_path(label, kind, corpora[cname], updates, kname)
+        if kname is not None:   # the projected path's own run of B4/B5, at D = R
+            kernel_stats[kname][f"d{PROJ_DIM}"] = {"path": kind, "launches": counts[kname],
+                                                   **stats}
         torch.cuda.empty_cache()
         log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     print(json.dumps({"kernels": [

@@ -6,11 +6,13 @@ ingest (single add delegates to batch, lib.rs:309-356), fixed mutation order
 on delete (index before storage, lib.rs:380-390), and rebuild_index from
 stored documents (lib.rs:560-581).
 
-Ported so far: the flat index kind and the IVF family (ivf, ivf_int8,
-ivf_int4) over the memory store, with ingest, search, delete, rebuild,
-optimize, tuning, stats and health. Every other index kind, the sharded
-kinds, the file store, index snapshots, backups, listing, pipelined ingest
-and the enterprise wrappers are still to be ported (ROADMAP.md, queue A).
+Ported so far: every single-chip index kind but ``graph`` (flat, binary,
+int8, pq, the IVF family ivf / ivf_int8 / ivf_int4, ivf_pq and the
+projected ivf_int8_proj / ivf_int4_proj) over the memory store, with ingest,
+search, delete, rebuild, optimize, tuning, stats and health. The graph kind,
+the sharded kinds, the file store, index snapshots, backups, listing,
+pipelined ingest and the enterprise wrappers are still to be ported
+(ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -32,8 +34,12 @@ from grape_vector_db_tpu_torch.engine.hybrid import HybridSearchEngine
 from grape_vector_db_tpu_torch.engine.planner import QueryEngine
 from grape_vector_db_tpu_torch.engine.sparse import SparseIndex
 from grape_vector_db_tpu_torch.errors import InvalidArgumentError, StateError
-from grape_vector_db_tpu_torch.index import (FlatDeviceIndex, Int4IvfDeviceIndex,
-                                             Int8IvfDeviceIndex, IvfDeviceIndex, VectorIndex)
+from grape_vector_db_tpu_torch.index import (BinaryDeviceIndex, FlatDeviceIndex,
+                                             Int4IvfDeviceIndex, Int8DeviceIndex,
+                                             Int8IvfDeviceIndex, IvfDeviceIndex,
+                                             IvfPqDeviceIndex, PqDeviceIndex,
+                                             ProjectedInt4IvfIndex, ProjectedInt8IvfIndex,
+                                             VectorIndex)
 from grape_vector_db_tpu_torch.services.embeddings import EmbeddingProvider, create_provider
 from grape_vector_db_tpu_torch.services.metrics import MetricsCollector
 from grape_vector_db_tpu_torch.storage import DocumentStore, MemoryDocumentStore
@@ -65,13 +71,24 @@ class DatabaseStats:
 
 
 def build_index(config: VectorDbConfig, device: str | torch.device = "cuda") -> VectorIndex:
-    """The index for ``config`` on ``device``. Ported kinds: ``"flat"``,
-    ``"ivf"``, ``"ivf_int8"`` and ``"ivf_int4"``."""
+    """The index for ``config`` on ``device``, with the arguments the JAX
+    factory passes. Ported kinds: ``"flat"``, ``"binary"``, ``"int8"``,
+    ``"pq"``, ``"ivf"``, ``"ivf_int8"``, ``"ivf_int4"``, ``"ivf_pq"``,
+    ``"ivf_int8_proj"`` and ``"ivf_int4_proj"``; ``"graph"``, the
+    ``sharded_*`` kinds and ``auto_shard`` raise."""
     kind = config.index.kind
     if config.device.auto_shard and kind in ("flat", "ivf", "ivf_int8", "ivf_int4"):
         raise InvalidArgumentError(
             "auto_shard is not ported to the PyTorch package yet: the sharded "
             "kinds wait for ROADMAP A.14 (parallel/mesh.py on torch.distributed)")
+    if kind.startswith("sharded_"):
+        raise InvalidArgumentError(
+            f"index kind {kind!r} is not ported to the PyTorch package yet: the "
+            "sharded kinds wait for ROADMAP A.14 (parallel/mesh.py on torch.distributed)")
+    if kind == "graph":
+        raise InvalidArgumentError(
+            "index kind 'graph' is not ported to the PyTorch package yet: it waits "
+            "for ROADMAP A.13 (graph search and kernel B11)")
     common = dict(
         dimension=config.vector_dimension,
         metric=config.distance,
@@ -83,17 +100,36 @@ def build_index(config: VectorDbConfig, device: str | torch.device = "cuda") -> 
     )
     if kind == "flat":
         return FlatDeviceIndex(**common)
+    if kind == "binary":
+        q = config.quantization
+        return BinaryDeviceIndex(**common, threshold=q.threshold,
+                                 rescore_ratio=config.index.rescore_ratio,
+                                 keep_vectors=q.keep_vectors, prescan=q.prescan)
+    if kind == "pq":
+        return PqDeviceIndex(**common, n_sub=config.index.pq_n_sub,
+                             nbits=config.index.pq_nbits,
+                             rescore_ratio=config.index.rescore_ratio)
+    if kind == "int8":
+        return Int8DeviceIndex(**common, rescore=config.index.int8_rescore)
     ivf = dict(common, nlist=config.index.nlist, nprobe=config.index.nprobe)
     if kind == "ivf":
         return IvfDeviceIndex(**ivf)
-    if kind in ("ivf_int8", "ivf_int4"):
-        cls = Int8IvfDeviceIndex if kind == "ivf_int8" else Int4IvfDeviceIndex
-        return cls(**ivf, rescore=config.index.int8_rescore,
-                   keep_bf16=config.index.ivf_int8_keep_bf16)
-    raise InvalidArgumentError(
-        f"index kind {kind!r} is not ported to the PyTorch package yet: 'flat', "
-        "'ivf', 'ivf_int8' and 'ivf_int4' are; the other kinds wait for ROADMAP "
-        "A.10-A.14")
+    if kind == "ivf_pq":
+        return IvfPqDeviceIndex(**ivf, n_sub=config.index.pq_n_sub,
+                                nbits=config.index.pq_nbits,
+                                residual=config.index.pq_residual,
+                                resident=config.index.pq_resident,
+                                rescore_k=config.index.pq_rescore_k)
+    codes = dict(ivf, rescore=config.index.int8_rescore,
+                 keep_bf16=config.index.ivf_int8_keep_bf16)
+    if kind == "ivf_int8":
+        return Int8IvfDeviceIndex(**codes)
+    if kind == "ivf_int4":
+        return Int4IvfDeviceIndex(**codes)
+    if kind in ("ivf_int8_proj", "ivf_int4_proj"):
+        cls = ProjectedInt4IvfIndex if kind == "ivf_int4_proj" else ProjectedInt8IvfIndex
+        return cls(**codes, proj_dim=config.index.proj_dim)
+    raise InvalidArgumentError(f"unknown index kind: {kind}")
 
 
 def _stack_vectors(docs: Sequence[Document], dim: int) -> np.ndarray:

@@ -26,11 +26,18 @@ from grape_vector_db_tpu_torch.index.base import IndexStats, SearchHit, VectorIn
 from grape_vector_db_tpu_torch.ops.distance import scored_topk
 from grape_vector_db_tpu_torch.utils.buckets import next_bucket, pad_rows
 
-__all__ = ["FlatDeviceIndex", "FlatIndex"]
+__all__ = ["FlatDeviceIndex", "FlatIndex", "grow_rows"]
 
 _SEARCH_CHUNK = 65536
 
 _STORAGE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def grow_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with zero rows appended up to ``rows`` (a new tensor)."""
+    out = torch.zeros((rows,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    out[:t.shape[0]].copy_(t)
+    return out
 
 
 def _row_norms(vecs: torch.Tensor) -> torch.Tensor:
@@ -85,16 +92,23 @@ class FlatDeviceIndex(VectorIndex):
         self.norms = torch.zeros((capacity,), dtype=torch.float32, device=self.device)
         self.valid = torch.zeros((capacity,), dtype=torch.bool, device=self.device)
         self.capacity = capacity
+        self._alloc_extra(capacity)
+
+    def _alloc_extra(self, capacity: int) -> None:
+        """Hook for subclasses holding extra per-slot device tensors."""
+
+    def _grow_extra(self, new_cap: int) -> None:
+        """Hook: grow extra per-slot tensors to new_cap."""
 
     def _ensure_capacity(self, needed: int) -> None:
         if needed <= self.capacity:
             return
         new_cap = next_bucket(needed, base=self._initial_capacity, factor=self._growth_factor)
-        old = (self.vectors, self.norms, self.valid)
-        self._alloc(new_cap)
-        for new, prev in zip((self.vectors, self.norms, self.valid), old):
-            new[:prev.shape[0]].copy_(prev)
+        self.vectors, self.norms, self.valid = (
+            grow_rows(t, new_cap) for t in (self.vectors, self.norms, self.valid))
+        self._grow_extra(new_cap)
         self._slot_to_id.extend([None] * (new_cap - len(self._slot_to_id)))
+        self.capacity = new_cap
 
     # -- properties ----------------------------------------------------------
 
@@ -144,9 +158,14 @@ class FlatDeviceIndex(VectorIndex):
             # Cast on the device; norms come from the cast rows, so they
             # describe the stored row exactly.
             vecs_d = torch.from_numpy(vectors).to(self.device).to(self.storage_dtype)
-            self.vectors.index_copy_(0, slots_d, vecs_d)
-            self.norms.index_copy_(0, slots_d, _row_norms(vecs_d))
-            self.valid.index_fill_(0, slots_d, True)
+            self._write(slots_d, vecs_d, _row_norms(vecs_d))
+
+    def _write(self, slots: torch.Tensor, vecs: torch.Tensor, norms: torch.Tensor) -> None:
+        """Write one batch (slots int64, rows in the storage dtype, f32
+        norms) into the device tensors (overridable)."""
+        self.vectors.index_copy_(0, slots, vecs)
+        self.norms.index_copy_(0, slots, norms)
+        self.valid.index_fill_(0, slots, True)
 
     def remove_batch(self, ids: Sequence[str]) -> int:
         with self._lock:
@@ -168,38 +187,56 @@ class FlatDeviceIndex(VectorIndex):
             self._free = []
             self._high_water = 0
 
-    def load_state(self, vectors: np.ndarray, norms: np.ndarray, valid: np.ndarray,
-                   slot_to_id: Sequence[Optional[str]], free: Sequence[int],
-                   high_water: int) -> None:
+    def load_state(self, vectors: Optional[np.ndarray], norms: Optional[np.ndarray],
+                   valid: np.ndarray, slot_to_id: Sequence[Optional[str]], free: Sequence[int],
+                   high_water: int, **extra) -> None:
         """Take over the device arrays and slot bookkeeping of another flat
         index — e.g. a JAX ``FlatDeviceIndex`` read back with ``np.asarray``
         (its ``vectors``, ``norms``, ``valid``, ``_slot_to_id``, ``_free``
-        and ``_high_water``). JAX hands bf16 back as an ``ml_dtypes``
-        bfloat16 array, which torch cannot take, so 2-byte arrays go through
-        their uint16 bit pattern."""
-        vectors = np.asarray(vectors)
-        cap = vectors.shape[0]
-        if vectors.ndim != 2 or vectors.shape[1] != self._dim:
-            raise DimensionMismatchError(self._dim, vectors.shape[-1])
-        if len(slot_to_id) != cap or np.shape(norms) != (cap,) or np.shape(valid) != (cap,):
-            raise ValueError("vectors, norms, valid and slot_to_id must share the capacity")
-        # np.array copies: arrays read back from another framework may be
-        # read-only, which torch.from_numpy does not take
-        if vectors.dtype.itemsize == 2:
-            if self.storage_dtype != torch.bfloat16:
-                raise ValueError(f"2-byte vectors need bfloat16 storage, not {self.storage_dtype}")
-            vecs_t = torch.from_numpy(np.array(vectors).view(np.uint16)).view(torch.bfloat16)
-        else:
-            vecs_t = torch.from_numpy(np.array(vectors, dtype=np.float32)).to(self.storage_dtype)
+        and ``_high_water``). ``extra`` holds a subclass's extra planes
+        (``_load_extra``). JAX hands bf16 back as an ``ml_dtypes`` bfloat16
+        array, which torch cannot take, so 2-byte arrays go through their
+        uint16 bit pattern. ``vectors`` and ``norms`` are None for a layout
+        that keeps no full-precision rows."""
+        cap = np.shape(valid)[0]
+        if len(slot_to_id) != cap or np.shape(valid) != (cap,):
+            raise ValueError("valid and slot_to_id must share the capacity")
+        if (vectors is None) != (self.vectors is None) or (vectors is None) != (norms is None):
+            raise ValueError("vectors and norms are given exactly when this layout keeps them")
+        vecs_t = norms_t = None
+        if vectors is not None:
+            vectors = np.asarray(vectors)
+            if vectors.ndim != 2 or vectors.shape[1] != self._dim:
+                raise DimensionMismatchError(self._dim, vectors.shape[-1])
+            if vectors.shape[0] != cap or np.shape(norms) != (cap,):
+                raise ValueError("vectors, norms and valid must share the capacity")
+            # np.array copies: arrays read back from another framework may
+            # be read-only, which torch.from_numpy does not take
+            if vectors.dtype.itemsize == 2:
+                if self.storage_dtype != torch.bfloat16:
+                    raise ValueError(f"2-byte vectors need bfloat16 storage, "
+                                     f"not {self.storage_dtype}")
+                vecs_t = torch.from_numpy(np.array(vectors).view(np.uint16)).view(torch.bfloat16)
+            else:
+                vecs_t = torch.from_numpy(np.array(vectors, dtype=np.float32)).to(
+                    self.storage_dtype)
+            vecs_t = vecs_t.to(self.device)
+            norms_t = torch.from_numpy(np.array(norms, dtype=np.float32)).to(self.device)
         with self._lock:
-            self.vectors = vecs_t.to(self.device)
-            self.norms = torch.from_numpy(np.array(norms, dtype=np.float32)).to(self.device)
+            self.vectors, self.norms = vecs_t, norms_t
             self.valid = torch.from_numpy(np.array(valid, dtype=bool)).to(self.device)
             self.capacity = cap
+            self._load_extra(cap, **extra)
             self._slot_to_id = list(slot_to_id)
             self._id_to_slot = {i: s for s, i in enumerate(self._slot_to_id) if i is not None}
             self._free = list(free)
             self._high_water = int(high_water)
+
+    def _load_extra(self, capacity: int, **extra) -> None:
+        """Hook: take over a subclass's extra planes in ``load_state``."""
+        if extra:
+            raise TypeError(f"{type(self).__name__}.load_state got unexpected planes "
+                            f"{sorted(extra)}")
 
     # -- search ---------------------------------------------------------------
 

@@ -259,9 +259,10 @@ class IvfDeviceIndex(VectorIndex):
             # norms come from the rows cast to the storage dtype, so they
             # describe the stored row exactly
             vecs_d = vt[rows].to(self.storage_dtype)
-            self._scatter_rows(torch.from_numpy(list_ids[keep]).to(self.device),
-                               torch.from_numpy(positions[keep]).to(self.device),
-                               vecs_d, _row_norms(vecs_d))
+            lists_d = torch.from_numpy(list_ids[keep]).to(self.device)
+            pos_d = torch.from_numpy(positions[keep]).to(self.device)
+            self._scatter_rows(lists_d, pos_d, vecs_d, _row_norms(vecs_d))
+            self._post_scatter(lists_d, pos_d, vecs_d)
         if spill_idx:
             self._overflow.add_batch([ids[i] for i in spill_idx], vectors[spill_idx])
 
@@ -278,6 +279,10 @@ class IvfDeviceIndex(VectorIndex):
         self.norms[lists, pos] = norms
         self.valid[lists, pos] = True
         self.recip[lists, pos] = self._weights(norms)
+
+    def _post_scatter(self, lists, pos, vecs) -> None:
+        """Hook after ``_scatter_rows``: planes a subclass derives from the
+        placed rows (IVF-PQ's codes)."""
 
     def remove_batch(self, ids: Sequence[str]) -> int:
         with self._lock:

@@ -1,5 +1,8 @@
-"""Device ops in PyTorch: distance scoring + top-k (``distance``) and the
-segment top-k kernels of the large-corpus exact engine (``segmax``)."""
+"""Device ops in PyTorch: distance scoring + top-k (``distance``), the
+segment top-k kernels of the large-corpus exact engine (``segmax``), the
+binary prescans and the Hamming kernel (``hamming``), int8 / int4 / PQ
+quantization and scans (``int8``, ``int4``, ``pq``), k-means, and the IVF
+probe kernels and filter tiers (``ivf``, ``ivf_scan``)."""
 
 from grape_vector_db_tpu_torch.ops.distance import (
     l2_normalize,

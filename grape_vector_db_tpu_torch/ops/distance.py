@@ -20,12 +20,12 @@ Similarity conventions (higher = better), matching the reference:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 __all__ = ["l2_normalize", "prepare_queries", "score_block", "scored_topk",
-           "f32_dots"]
+           "chunked_topk", "f32_dots"]
 
 NEG_INF = float("-inf")
 
@@ -175,26 +175,51 @@ def scored_topk(
     chunk = min(chunk, n)
     if n % chunk:
         raise ValueError(f"capacity {n} must be a multiple of chunk {chunk}")
-    kc = min(k, chunk)
-    part_v, part_i = [], []
-    for off in range(0, n, chunk):
-        scores = score_block(q, vectors[off:off + chunk], norms[off:off + chunk],
-                             valid[off:off + chunk], metric)
-        v, i = torch.topk(scores, kc, dim=1)
+    vals, idxs = chunked_topk(
+        lambda lo, hi: score_block(q, vectors[lo:hi], norms[lo:hi], valid[lo:hi], metric),
+        n, chunk, k)
+    return _pad_k(vals, idxs, k)
+
+
+def _largest(vals: torch.Tensor, slots: torch.Tensor,
+             k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    top, pos = torch.topk(vals, k, dim=1)
+    return top, torch.gather(slots, 1, pos)
+
+
+def chunked_topk(
+    score_chunk: Callable[[int, int], torch.Tensor],
+    n: int,
+    chunk: int,
+    k: int,
+    select: Callable = _largest,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Best k of n rows, scored ``chunk`` rows at a time, then one merge.
+
+    ``score_chunk(lo, hi)`` returns the [B, hi - lo] scores of rows lo..hi-1
+    with invalid rows already masked; ``select(vals, slots, k)`` keeps each
+    row's best k (values, slots) in order (default: the k largest). Returns
+    (values [B, k'], slots [B, k'] int64) with k' = min(k, n)."""
+    part_v, part_s = [], []
+    for lo in range(0, n, chunk):
+        vals = score_chunk(lo, min(lo + chunk, n))
+        slots = torch.arange(lo, lo + vals.shape[1], device=vals.device).expand_as(vals)
+        v, s = select(vals, slots, min(k, vals.shape[1]))
         part_v.append(v)
-        part_i.append(i + off)
-    vals = torch.cat(part_v, dim=1)
-    idxs = torch.cat(part_i, dim=1)
-    fvals, fpos = torch.topk(vals, min(k, vals.shape[1]), dim=1)
-    return _pad_k(fvals, torch.gather(idxs, 1, fpos), k)
+        part_s.append(s)
+    if len(part_v) == 1:
+        return part_v[0], part_s[0]
+    vals, slots = torch.cat(part_v, dim=1), torch.cat(part_s, dim=1)
+    return select(vals, slots, min(k, vals.shape[1]))
 
 
-def _pad_k(vals: torch.Tensor, idxs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pad result columns with (-inf, 0) up to k when the corpus was < k rows."""
+def _pad_k(vals: torch.Tensor, idxs: torch.Tensor, k: int,
+           fill=NEG_INF) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad result columns with (fill, 0) up to k when the corpus was < k rows."""
     got = vals.shape[1]
     if got >= k:
         return vals[:, :k], idxs[:, :k]
     pad = k - got
-    vals = torch.nn.functional.pad(vals, (0, pad), value=NEG_INF)
+    vals = torch.nn.functional.pad(vals, (0, pad), value=fill)
     idxs = torch.nn.functional.pad(idxs, (0, pad), value=0)
     return vals, idxs

@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from grape_vector_db_tpu_torch.index import (FlatIndex, Int4IvfDeviceIndex, Int8IvfDeviceIndex,
-                                             IvfDeviceIndex)
+from grape_vector_db_tpu_torch.index import (BinaryDeviceIndex, FlatIndex, Int4IvfDeviceIndex,
+                                             Int8IvfDeviceIndex, IvfDeviceIndex,
+                                             ProjectedInt4IvfIndex, ProjectedInt8IvfIndex)
 from grape_vector_db_tpu_torch.ops import distance as tdist
+from grape_vector_db_tpu_torch.ops import hamming as tham
 from grape_vector_db_tpu_torch.ops import ivf as tivf
 from grape_vector_db_tpu_torch.ops import segmax as tseg
 from grape_vector_db_tpu_torch.ops.int4 import quantize_int4
@@ -183,3 +185,123 @@ def test_flat_index_on_cuda_matches_cpu(cuda, monkeypatch, k):
         assert [i for i, _ in got] == [i for i, _ in want]
         np.testing.assert_allclose([s for _, s in got], [s for _, s in want],
                                    rtol=0, atol=1e-4)
+
+
+def _words(g, rows, w, pattern):
+    """[rows, w] int32 words: random bits, or an all-zero, all-one or
+    alternating pattern."""
+    if pattern == "random":
+        return torch.from_numpy(g.integers(-2**31, 2**31, (rows, w), dtype=np.int64)
+                                .astype(np.int32))
+    val = {"zeros": 0, "ones": -1, "alternating": 0x55555555}[pattern]
+    out = np.full((rows, w), val, np.int64)
+    out[1::2] ^= 0xFFFFFFFF if pattern == "alternating" else 0
+    return torch.from_numpy(out.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,w", [(1, 1, 1), (129, 1000, 3), (7, 262_143, 24),
+                                   (33, 4097, 24), (2, 513, 5)])
+@pytest.mark.parametrize("pattern", ["random", "zeros", "ones", "alternating"])
+def test_hamming_kernel_equals_plain(cuda, b, c, w, pattern):
+    """B6 against its plain version, integer for integer: C not a multiple
+    of 512 (or of the kernel's 128-row tile), W = 1, 3, 5, 24, B = 1, 129."""
+    g = np.random.default_rng(b * 7 + c)
+    q = _words(g, b, w, "random" if pattern == "random" else "alternating").to(cuda)
+    codes = _words(g, c, w, pattern).to(cuda)
+    before = tham.LAUNCHES["hamming"]
+    got = tham.hamming_popcount(q, codes)
+    torch.cuda.synchronize()
+    assert tham.LAUNCHES["hamming"] == before + 1
+    assert torch.equal(got, tham.hamming_scores_ref(q, codes))
+    assert torch.equal(tham.hamming_scores(q, codes, impl="xla"), got)
+
+
+@pytest.mark.cuda
+def test_popcount_route_raises_when_the_kernel_cannot_load(cuda, monkeypatch):
+    """A CUDA tensor launches B6 or raises; it never falls back to the plain
+    version, through the op or through the index."""
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(tham, "build_kernels", no_library)
+    q = torch.zeros((2, 24), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tham.hamming_scores(q, q, impl="popcount")
+    idx = BinaryDeviceIndex(64, hamming_impl="popcount", prescan="hamming", device=cuda)
+    idx.add_batch(["a", "b"], np.eye(2, 64, dtype=np.float32))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        idx.search_batch(np.eye(2, 64, dtype=np.float32), 1)
+    with pytest.raises(ValueError, match="int32"):
+        tham._launch(q.float(), q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prescan,impl", [("hamming", "popcount"), ("hamming", "mxu"),
+                                          ("asym", "mxu")])
+def test_binary_index_on_cuda_matches_cpu(cuda, prescan, impl):
+    """One binary corpus on the CPU (plain versions) and on the card: the
+    same hits; scores within 1e-4 (f32 sums in different orders)."""
+    g = np.random.default_rng(3)
+    v = g.standard_normal((6000, 128)).astype(np.float32)
+    q = v[:12] + 0.1 * g.standard_normal((12, 128)).astype(np.float32)
+    ids = [f"d{i}" for i in range(len(v))]
+    tham.reset_launch_counts()
+    hits = []
+    for dev in (cuda, "cpu"):
+        idx = BinaryDeviceIndex(128, prescan=prescan, hamming_impl=impl, device=dev)
+        idx.add_batch(ids, v)
+        idx.remove_batch(ids[:30])
+        hits.append((idx.search_batch(q, 10), idx.hamming_only_topk(q, 10)))
+    assert tham.LAUNCHES["hamming"] == (2 if impl == "popcount" else 0)
+    for got, want in zip(*hits):
+        for a, b in zip(got, want):
+            assert [i for i, _ in a] == [i for i, _ in b]
+            np.testing.assert_allclose([s for _, s in a], [s for _, s in b], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls,name", [(ProjectedInt8IvfIndex, "ivf_probe_int8"),
+                                      (ProjectedInt4IvfIndex, "ivf_probe_int4")])
+def test_projected_ivf_runs_the_probe_kernels_at_384(cuda, cls, name):
+    """The projected kinds run B4/B5 at D = R = 384 (int4: 192 packed bytes,
+    twelve 16-byte chunks a row): kernel scores equal the plain version's
+    at the index's own shapes."""
+    g = np.random.default_rng(4)
+    basis = np.linalg.qr(g.standard_normal((768, 320)))[0].astype(np.float32)
+    v = (g.standard_normal((6000, 320)).astype(np.float32) @ basis.T
+         + 0.02 * g.standard_normal((6000, 768)).astype(np.float32))
+    idx = cls(768, proj_dim=384, nlist=16, nprobe=4, initial_capacity=2048, device=cuda)
+    idx.add_batch([f"d{i}" for i in range(len(v))], v)
+    assert idx.proj_energy > 0.9
+    tivf.reset_launch_counts()
+    hits = idx.search_batch(v[:8], 5)
+    assert tivf.LAUNCHES[name] == 1 and [row[0][0] for row in hits] == [f"d{i}" for i in range(8)]
+    qp = torch.nn.functional.normalize(torch.from_numpy(v[:8]).to(cuda) @ idx.proj, dim=1)
+    probe = torch.topk(qp @ idx.centroids.T, 4, dim=1).indices.to(torch.int32)
+    kern = tivf.ivf_probe_scores_int8 if name == "ivf_probe_int8" else tivf.ivf_probe_scores_int4
+    plain = (tivf.ivf_probe_scores_int8_ref if name == "ivf_probe_int8"
+             else tivf.ivf_probe_scores_int4_ref)
+    got = kern(qp, probe, idx.codes, idx.factor, idx._nblocks())
+    want = plain(qp, probe, idx.codes, idx.factor, idx._nblocks())
+    torch.cuda.synchronize()
+    assert torch.equal(got == -1e9, want == -1e9)
+    assert (got - want)[want != -1e9].abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [768, 1040, 8192])
+def test_int8_dots_on_cuda_are_the_exact_products(cuda, d):
+    """int8_topk's product on the card (bf16 x bf16 -> f32, 1040-lane slices
+    added in int32 past 1040 lanes) equals the exact integer products cast
+    to f32 once, at the default width, at the slice width and past 2^24."""
+    from grape_vector_db_tpu_torch.ops import int8 as tint8
+
+    g = np.random.default_rng(5)
+    qi = g.integers(100, 128, (8, d)).astype(np.int8)
+    codes = g.integers(-127, 128, (1000, d)).astype(np.int8)
+    codes[:500] = np.abs(codes[:500])             # sums past 2^24 at d = 8192
+    want = (qi.astype(np.int64) @ codes.astype(np.int64).T).astype(np.float32)
+    got = tint8._int8_dots(torch.from_numpy(qi).to(cuda).to(torch.bfloat16),
+                           torch.from_numpy(codes).to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -96,3 +96,31 @@ def assert_planes_match(planes, ref_planes, n_vals: int, tol: float) -> None:
         sure = gap > _allowance(ref[t], tol)
         assert sure.mean() > 0.5, "too few separated ranks to check indices"
         np.testing.assert_array_equal(i[sure], ri[sure])
+
+
+def assert_two_stage_match(hits, ref_hits, tol: float, prescan_of=None,
+                           boundary=None, prescan_tol: float = 0.0) -> None:
+    """Final hits of a two-stage search (a prescan keeps the top r
+    candidates, an exact rescore ranks them) against a reference whose
+    prescan summed in another order, so that the two candidate sets may
+    differ at the r-th prescan score. An id may differ between the two only
+    at a near tie of the final k-th score (``tol``) or at that boundary:
+    ``prescan_of(row, id)`` is the id's prescan score and ``boundary[row]``
+    the r-th one, within ``prescan_tol``. Scores of common ids agree within
+    ``tol``."""
+    assert len(hits) == len(ref_hits)
+    for r, (row, ref_row) in enumerate(zip(hits, ref_hits)):
+        got, want = dict(row), dict(ref_row)
+        assert len(got) == len(row) and len(row) == len(ref_row), (row, ref_row)
+        for i in set(got) & set(want):
+            assert abs(got[i] - want[i]) <= _allowance(want[i], tol), (i, got[i], want[i])
+        if not want:
+            continue
+        kth = min(min(want.values()), min(got.values()))
+        for i in set(got) ^ set(want):
+            v = got.get(i, want.get(i))
+            if abs(v - kth) <= _allowance(kth, tol):
+                continue
+            assert prescan_of is not None and abs(prescan_of(r, i) - boundary[r]) <= \
+                prescan_tol, (f"row {r}: id {i} (score {v}) differs away from the k-th "
+                              f"score {kth} and from the prescan boundary: {row} vs {ref_row}")
