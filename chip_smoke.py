@@ -26,14 +26,26 @@ the port's paths through ``VectorDatabase`` on the card:
   limit): ``int8`` and ``pq`` on the Gaussian corpus, ``ivf_pq`` with each
   resident plane on the clustered IVF corpus (nlist 1024), and the projected
   ``ivf_int8_proj`` / ``ivf_int4_proj`` (R = 384, B4/B5) on a low-rank
-  corpus.
+  corpus;
+- the graph kind (``kind="graph"``, the config defaults: degree 32, pool
+  128, 12 NN-descent rounds) on the first 131,072 rows of the clustered
+  corpus (a cut of scale from 1M: the reference's rule rebuilds the graph
+  at every 25% of growth, about five full builds of host-side NN-descent
+  joins over the ingest): ingest, ``optimize()``,
+  search, filtered search, deletes and an upsert into the fresh region
+  against the numpy oracle; its build, entry step and beam iterations run
+  B11 (``csrc/gather.cu``), which is checked at those three shapes with the
+  ids of a real build round and a real search.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Every phase raises on failure. Earlier lines report each phase;
 the line before the last is a JSON object with one entry per kernel (B4/B5's
 entries carry their launches on the IVF path; the projected path's own run
-at D = 384 sits under their "d384" key); the last line is the JSON result. Without a CUDA device, or without the repository
-beside it, it exits non-zero and prints no result.
+at D = 384 sits under their "d384" key; B11 has one entry for the graph
+search, with its entry step's shape under "entry", and one for the build,
+"gather_dots@build"); the last line is the JSON result. Without a CUDA
+device, or without the repository beside it, it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -76,6 +88,11 @@ PROJ_DIM = 384
 LOWRANK_RANK = 320        # the low-rank corpus: a random 320-d subspace of R^768
 LOWRANK_SPREAD = 0.25     # within-cluster spread inside the subspace
 LOWRANK_NOISE = 0.02      # full-space noise
+# the graph kind: the first 131,072 rows of the clustered corpus, a cut of
+# scale from 1M for the reference's rebuild cascade (at 262,144 rows the
+# phase took 276.5 s of its 240 s share of the limit on an H100)
+GRAPH_ROWS = 1 << 17
+GRAPH_BUDGET_S = 240.0
 
 DEV = "cuda"              # where the port's tensors live
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
@@ -96,6 +113,12 @@ KERNELS = {
                        "grape_vector_db_tpu/ops/ivf_pallas.py:477"),
     "hamming": ("grape_vector_db_tpu_torch/csrc/hamming.cu",
                 "grape_vector_db_tpu/ops/hamming_pallas.py:37"),
+    # B11 on the graph path: the search's launches (entry step, beam) and,
+    # separately, the build's
+    "gather_dots": ("grape_vector_db_tpu_torch/csrc/gather.cu",
+                    "grape_vector_db_tpu/ops/gather_pallas.py:61"),
+    "gather_dots@build": ("grape_vector_db_tpu_torch/csrc/gather.cu",
+                          "grape_vector_db_tpu/ops/gather_pallas.py:61"),
 }
 POPC_PER_CLOCK_PER_SM = 16  # __popc issue rate, CUDA programming guide, cc 9.0
 # IVF kind -> the probe kernel its main search runs
@@ -152,12 +175,15 @@ def ptxas_summary(build_log: str):
         m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)E(\w+?)EEv", line)
         p = re.search(r"Compiling entry function '.*probe_kernelILi(\d)E+v", line)
         h = re.search(r"Compiling entry function '.*hamming_kernel", line)
+        g = re.search(r"Compiling entry function '.*gather_dots_kernelILi(\d)ELb(\d)E", line)
         if m:
             name = f"segmax{m[1]}<{'bf16' if 'bfloat16' in m[2] else 'f32'}>"
         elif p:
             name = f"ivf_probe<{fmts[p[1]]}>"
         elif h:
             name = "hamming"
+        elif g:
+            name = f"gather_dots<{fmts[g[1]]}, {'16-byte' if g[2] == '1' else 'element'} loads>"
         elif name and "spill stores" in line:
             spill = line.strip()
         elif name and "Used" in line and "registers" in line:
@@ -168,17 +194,18 @@ def ptxas_summary(build_log: str):
 
 
 def reset_counts():
-    from grape_vector_db_tpu_torch.ops import hamming, ivf, segmax
+    from grape_vector_db_tpu_torch.ops import gather, hamming, ivf, segmax
 
     segmax.reset_launch_counts()
     ivf.reset_launch_counts()
     hamming.reset_launch_counts()
+    gather.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from grape_vector_db_tpu_torch.ops import hamming, ivf, segmax
+    from grape_vector_db_tpu_torch.ops import gather, hamming, ivf, segmax
 
-    return {**segmax.LAUNCHES, **ivf.LAUNCHES, **hamming.LAUNCHES}
+    return {**segmax.LAUNCHES, **ivf.LAUNCHES, **hamming.LAUNCHES, **gather.LAUNCHES}
 
 
 # -- set-up -----------------------------------------------------------------
@@ -193,19 +220,20 @@ def setup():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     log(smi)
-    from grape_vector_db_tpu_torch.ops import _build, hamming, ivf, segmax
+    from grape_vector_db_tpu_torch.ops import _build, gather, hamming, ivf, segmax
 
     nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip().splitlines()[-1]
     log(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    builds = (segmax.build_kernels, ivf.build_kernels, hamming.build_kernels)
+    builds = (segmax.build_kernels, ivf.build_kernels, hamming.build_kernels,
+              gather.build_kernels)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source
         for fut in [pool.submit(b) for b in builds]:
             fut.result()
     log(f"[setup] kernels built in {time.perf_counter() - t0:.2f} s (in parallel)")
-    for name in ("segmax", "ivf_probe", "hamming"):
+    for name in ("segmax", "ivf_probe", "hamming", "gather"):
         info = _build.BUILD_INFO[name]
         log(f"[setup] {name}: {info['library']}, {info['seconds']:.2f} s")
         for entry in ptxas_summary(str(info["log"])):
@@ -1355,6 +1383,286 @@ def proj_probe_shapes(name, idx, corpus):
             "library_ms": None}
 
 
+# -- graph search (kind="graph") and B11 ----------------------------------------------
+
+
+def gather_check(label, q, v, ids):
+    """B11 against its plain version on the card: every entry within 1e-4 of
+    its sum of |q_d v_d| (f32 sums in another order). Returns the largest
+    difference."""
+    from grape_vector_db_tpu_torch.ops import gather
+
+    got = gather.gather_dots(q, v, ids)
+    torch.cuda.synchronize()
+    want = gather.gather_dots_ref(q, v, ids)
+    scale = gather.gather_dots_ref(q.abs(), v.abs(), ids)
+    diff = (got - want).abs()
+    require(bool((diff <= 1e-4 * scale + 1e-30).all()),
+            f"gather_dots {label}: kernel and plain version differ by up to "
+            f"{diff.max().item():.3g} (allowance 1e-4 of the |q.v| sum)")
+    return diff.max().item()
+
+
+def gather_exact(label, q, v, ids):
+    """B11 equal to its plain version, value for value (exact sums)."""
+    from grape_vector_db_tpu_torch.ops import gather
+
+    got = gather.gather_dots(q, v, ids)
+    torch.cuda.synchronize()
+    require(torch.equal(got, gather.gather_dots_ref(q, v, ids)),
+            f"gather_dots {label}: kernel and plain version differ on exact sums")
+
+
+def gather_times(label, q, v, ids, reps_k, reps_p):
+    """Kernel and plain version timed in turns, the library route (the row
+    gather + torch.bmm: two calls, the rows materialized), and the bound:
+    the distinct rows the ids name, each read once, plus q, the ids and the
+    output, against 2 B C D operations at the bf16 peak."""
+    from grape_vector_db_tpu_torch.ops import gather
+
+    (k1, k2), (p1, p2) = in_turns(lambda: gather.gather_dots(q, v, ids),
+                                  lambda: gather.gather_dots_ref(q, v, ids), reps_k, reps_p)
+    qc = q.to(v.dtype)[:, :, None]
+    lib = cuda_ms(lambda: torch.bmm(v[ids.long()], qc), reps_p)
+    b, c = ids.shape
+    d = v.shape[1]
+    distinct = int(torch.unique(ids.clamp(0, v.shape[0] - 1)).numel())
+    nbytes = distinct * d * v.element_size() + q.numel() * 4 + 2 * ids.numel() * 4
+    stats = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+             **bound(nbytes, 2.0 * b * c * d), "library_ms": lib}
+    log(f"[times] gather_dots {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+        f"{p2:.4f} ms, library (row gather + torch.bmm, two calls) {lib:.4f} ms; {distinct} "
+        f"distinct rows of {b * c} ({distinct * d * v.element_size() / 1e6:.1f} MB; every "
+        f"candidate read {b * c * d * v.element_size() / 1e6:.1f} MB); bound "
+        f"{stats['bound_ms']:.4f} ms by {stats['bound_by']} (B={b}, C={c}, D={d}, {v.dtype})")
+    return stats
+
+
+def gather_phase(idx, beam_calls):
+    """B11 against its plain version at the three shapes of the graph path,
+    with the ids of a real entry step and beam iteration (``beam_calls``)
+    and of a real build round (the NN-descent join over the built graph):
+    Gaussian rows within 1e-4 of the |q.v| sum (bf16 and f32 storage), small
+    integers equal value for value, ragged shapes equal, out-of-range ids
+    clamped alike. Returns the stats of the beam shape and the build shape."""
+    from grape_vector_db_tpu_torch.ops import gather
+    from grape_vector_db_tpu_torch.ops.distance import prepare_queries
+    from grape_vector_db_tpu_torch.ops.graph import join_candidates
+
+    dev = torch.device(DEV)
+    v = idx._graph_store.vectors[:idx._nb_cap]
+    n = v.shape[0]
+    cand = join_candidates(idx.neighbors.cpu().numpy(), min(idx.degree, 8))
+    shapes = {"beam": beam_calls[len(beam_calls) // 2],     # a middle beam iteration
+              "entry": beam_calls[0],                       # the entry step
+              "build": (prepare_queries(v[:2048].float(), "cosine"),
+                        torch.from_numpy(cand[:2048]).to(dev))}
+    rng = np.random.default_rng(SEED + 11)
+    vi = torch.from_numpy(rng.integers(-3, 4, (n, DIM)).astype(np.float32)).to(dev)
+    errs = {}
+    for label, (q, ids) in shapes.items():
+        b, c = ids.shape
+        errs[label] = max(gather_check(f"{label} bf16", q, v, ids),
+                          gather_check(f"{label} f32 storage", q, v.float(), ids))
+        qi = torch.from_numpy(rng.integers(-3, 4, (b, DIM)).astype(np.float32)).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            gather_exact(f"{label} integer {dtype}", qi, vi.to(dtype), ids)
+        log(f"[kernels] gather_dots {label}: q [{b},{DIM}] x ids [{b},{c}] (real ids) over "
+            f"[{n},{DIM}]: max_abs_err {errs[label]:.3g} (bf16 and f32 storage, within 1e-4 "
+            f"of the |q.v| sum); small integers equal value for value (bf16 and f32)")
+    for d in (100, 1536, 1):
+        vr = torch.from_numpy(rng.integers(-3, 4, (300, d)).astype(np.float32)).to(dev)
+        qr = torch.from_numpy(rng.integers(-3, 4, (5, d)).astype(np.float32)).to(dev)
+        ids = torch.from_numpy(rng.integers(0, 300, (5, 37)).astype(np.int32)).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            gather_exact(f"ragged B=5 C=37 D={d} {dtype}", qr, vr.to(dtype), ids)
+    wild = torch.tensor([[0, -1, 5, n], [n - 1, -7, n + 60, -1], [1, 2, 3, 1 << 30],
+                         [-(1 << 30), 4, 0, 7]], dtype=torch.int32, device=dev)
+    qw = torch.from_numpy(rng.integers(-3, 4, (4, DIM)).astype(np.float32)).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        vw = vi.to(dtype)
+        gather_exact(f"out-of-range ids {dtype}", qw, vw, wild)
+        require(torch.equal(gather.gather_dots(qw, vw, wild),
+                            gather.gather_dots(qw, vw, wild.clamp(0, n - 1))),
+                "gather_dots: out-of-range ids do not clamp")
+    log("[kernels] gather_dots ragged (B=5, C=37, D=100, 1536 and 1; bf16 and f32): equal; "
+        "negative and too-large ids clamp to rows 0 and N-1 in kernel and plain version alike")
+    del vi
+    out = {}
+    for label, key, reps in (("beam", "gather_dots", (20, 5)), ("entry", "entry", (20, 5)),
+                             ("build", "gather_dots@build", (10, 3))):
+        q, ids = shapes[label]
+        out[key] = {"max_abs_err": errs[label], **gather_times(label, q, v, ids, *reps)}
+    out["gather_dots"]["entry"] = out.pop("entry")
+    return out
+
+
+def graph_path(corpus):
+    """kind="graph" with the config defaults (m 16 -> degree 32, ef_search
+    100 -> pool 128, ef_construction 200 -> 12 rounds; 64 entries, expand 8;
+    cosine, bf16) over the clustered corpus, ingested in batches of 8192
+    (the reference's rebuild rule rebuilds at every 25% of growth), then
+    optimize(), search, filtered search, deletes and an upsert into the fresh
+    region, each against the numpy oracle. Returns (search launches, build
+    launches, kernel stats)."""
+    from grape_vector_db_tpu_torch import (Condition, Document, Filter, SearchRequest,
+                                           VectorDatabase, VectorDbConfig)
+    from grape_vector_db_tpu_torch.index.graph import _probe_entries
+    from grape_vector_db_tpu_torch.ops import graph as tgraph
+
+    t_phase = time.perf_counter()
+    rows = corpus.rows
+    cfg = VectorDbConfig(vector_dimension=DIM)
+    cfg.index.kind = "graph"
+    db = VectorDatabase(config=cfg, device=DEV)
+    idx = db.index
+    log(f"[graph] VectorDatabase: {rows} rows ({corpus.name} corpus), degree {idx.degree}, "
+        f"pool {idx.pool}, {idx.build_rounds} rounds, {idx.n_entries} entries, expand "
+        f"{idx.expand}, {idx.search_iters} iterations, metric {idx.metric}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    for start in range(0, rows, INGEST_BATCH):
+        xb = corpus.x[start:start + INGEST_BATCH]
+        db.batch_add_documents([Document(id=f"doc{start + i}", content=f"doc {start + i}",
+                                         vector=xb[i], metadata={"g": (start + i) % 10})
+                                for i in range(len(xb))])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    ingest_builds = idx.builds
+    t0 = time.perf_counter()
+    db.optimize()
+    torch.cuda.synchronize()
+    optimize_s = time.perf_counter() - t0
+    build_launches = read_counts()["gather_dots"]
+    require(build_launches > 0, "the graph build never launched gather_dots")
+    require(len(idx) == rows and idx.get_stats().extra["fresh"] == 0,
+            f"graph: {len(idx)} rows, fresh {idx.get_stats().extra['fresh']}")
+    log(f"[graph] ingested {rows} in {ingest_s:.2f} s ({rows / ingest_s:.0f} docs/s) with "
+        f"{ingest_builds} builds; optimize() (one more full build) {optimize_s:.2f} s; "
+        f"B11 launches in the builds {build_launches}; {idx.get_stats().memory_usage_mb:.0f} MB")
+
+    builds = idx.builds
+    qs = corpus.queries
+    reset_counts()
+    batch = to_rows(db.vector_search_batch(qs, 10))
+    single = [to_rows([db.vector_search(SearchRequest(vector=qs[i].tolist(), limit=10))])[0]
+              for i in range(4)]
+    filt = Filter(must=[Condition("g", "eq", 3)])
+    filtered = [to_rows([db.vector_search(SearchRequest(vector=qs[i].tolist(), limit=10,
+                                                        filter=filt))])[0] for i in range(8)]
+    gone = sorted({i for row in batch[:16] for i, _ in row})
+    n_del = db.batch_delete_documents([f"doc{i}" for i in gone])
+    require(n_del == len(gone), f"graph: deleted {n_del} of {len(gone)}")
+    after = to_rows(db.vector_search_batch(qs[:16], 10))
+    # upsert: 1000 existing ids get new vectors, which go to the fresh region
+    rng = np.random.default_rng(SEED + 12)
+    up_rows = np.arange(rows - 1000, rows)
+    newv = (corpus.x[rng.integers(0, rows, 1000)]
+            + 0.5 * rng.standard_normal((1000, DIM), dtype=np.float32)).astype(np.float32)
+    db.batch_add_documents([Document(id=f"doc{r}", content=f"doc {r} v2", vector=newv[i],
+                                     metadata={"g": int(r % 10)})
+                            for i, r in enumerate(up_rows)])
+    fresh = idx.get_stats().extra["fresh"]
+    up_hits = to_rows(db.vector_search_batch(newv[:32], 1))
+    old_hits = to_rows(db.vector_search_batch(corpus.x[up_rows[:32]], 10))
+    torch.cuda.synchronize()
+    launches = read_counts()["gather_dots"]
+    require(launches > 0, "graph search never launched gather_dots")
+    require(idx.builds == builds and fresh == 1000,
+            f"graph: a build ran inside the search window, or fresh holds {fresh}")
+    log(f"[graph] searches done: batch B={BATCH} k=10, 4 x k=10, 8 x filtered k=10, deleted "
+        f"{n_del} (the top hits of 16 queries), batch again, upserted 1000 rows into the fresh "
+        f"region, 32 + 32 searches; B11 launches {launches}")
+
+    for name, hits in (("batch", batch), ("single", single)):
+        for r, row in enumerate(hits):
+            require(len(row) == 10 and len({i for i, _ in row}) == 10,
+                    f"graph {name} q{r}: {len(row)} hits, duplicates?")
+            for i, s in row:
+                require(abs(s - float(corpus.scores[r, i])) <= TOL,
+                        f"graph {name} q{r}: score of {i} {s} vs oracle {corpus.scores[r, i]}")
+    rec = recall_at(batch, corpus.top)
+    require(rec >= 0.85, f"graph recall@10 {rec:.4f} < 0.85")
+    n_filt = sum(len(row) for row in filtered)
+    require(n_filt > 0 and all(i % 10 == 3 for row in filtered for i, _ in row),
+            "graph: a filtered result broke the filter (or none came back)")
+    alive = np.ones(rows, bool)
+    alive[gone] = False
+    require(all(len(row) == 10 and not any(not alive[i] for i, _ in row) for row in after),
+            "graph: a deleted id came back")
+    first = sum(row[0][0] == int(up_rows[i]) for i, row in enumerate(up_hits))
+    require(first == 32, f"graph: {first}/32 upserted rows found first")
+    for i, row in enumerate(old_hits):
+        r = int(up_rows[i])
+        for j, s in row:
+            if j == r:   # the id now carries its new vector's score
+                want = float(exact_scores(corpus.x[r:r + 1] / np.linalg.norm(corpus.x[r]),
+                                          newv, [i])[0, 0])
+                require(abs(s - want) <= TOL, f"graph: upserted doc{r} kept its old score")
+    log(f"[graph] answers agree with the numpy oracle: ids distinct, every score within "
+        f"{TOL} of the oracle's; recall@10 against the flat oracle {rec:.4f} (floor 0.85); "
+        f"filtered 10%: {n_filt} hits of 8 queries (over-fetch + host filter), all in the "
+        f"filter; deleted ids never return (recall after delete "
+        f"{recall_full(after, corpus, alive):.4f}); 32/32 upserted rows found first through "
+        f"the fresh region; builds {idx.builds:.0f}")
+
+    med = timed(lambda: db.vector_search_batch(qs, 10))
+    single_t = []
+    for i in range(100):
+        req = SearchRequest(vector=qs[i % BATCH].tolist(), limit=10)
+        t0 = time.perf_counter()
+        db.vector_search(req)
+        single_t.append(time.perf_counter() - t0)
+    single_t.sort()
+    index_ms = timed(lambda: idx.search_batch(qs, 10)) * 1e3
+
+    # the ids of a real search: its entry step and its beam iterations
+    calls = []
+    inner = tgraph.gather_dots
+
+    def record(q, vectors, ids, impl="xla"):
+        calls.append((q, ids.clone()))
+        return inner(q, vectors, ids, impl=impl)
+
+    tgraph.gather_dots = record
+    try:
+        idx.search_batch(qs, 10)
+    finally:
+        tgraph.gather_dots = inner
+    require(len(calls) == 1 + idx.search_iters, f"graph: {len(calls)} gather calls a search")
+    stats = gather_phase(idx, calls)
+
+    gs = idx._graph_store
+    nb = idx._nb_cap
+    qt = torch.from_numpy(qs).to(DEV)
+
+    def beam_once():
+        entries = _probe_entries(qt, idx.centroids, idx.reps, e=idx.n_entries, metric="cosine")
+        return tgraph.beam_search(qt, gs.vectors[:nb], gs.norms[:nb], gs.valid[:nb], entries,
+                                  idx.neighbors, k=20, pool=idx.pool, expand=idx.expand,
+                                  iters=idx.search_iters, metric="cosine")
+
+    dev_ms = cuda_ms(beam_once, 10)
+    b11_ms = (stats["gather_dots"]["ms"] * idx.search_iters
+              + stats["gather_dots"]["entry"]["ms"])
+    e2e_ms = med * 1e3
+    log(f"[times] graph vector_search_batch B={BATCH} k=10 at {rows - n_del} rows: median "
+        f"{e2e_ms:.3f} ms of 20 ({BATCH / med:.0f} queries/s); vector_search k=10 median "
+        f"{single_t[49] * 1e3:.3f} ms, p99 {single_t[98] * 1e3:.3f} ms of 100; ingest "
+        f"{rows / ingest_s:.0f} docs/s; optimize() {optimize_s:.2f} s")
+    log(f"[times] graph breakdown of vector_search_batch B={BATCH}: end to end {e2e_ms:.3f} ms; "
+        f"index.search_batch {index_ms:.3f} ms; device span of entry probe + beam (CUDA "
+        f"events) {dev_ms:.3f} ms, of which B11 {idx.search_iters + 1} launches ~{b11_ms:.3f} "
+        f"ms; readback, fresh scan, hit building and merge {index_ms - dev_ms:.3f} ms; planner "
+        f"and results {e2e_ms - index_ms:.3f} ms; device busy share ~{dev_ms / e2e_ms:.2f}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[time] graph phase {phase_s:.1f} s (budget {GRAPH_BUDGET_S:.0f} s"
+        f"{', over it' if phase_s > GRAPH_BUDGET_S else ''})")
+    db.close()
+    return launches, build_launches, stats
+
+
 def main():
     t_start = time.perf_counter()
     setup()
@@ -1389,6 +1697,12 @@ def main():
                                                    **stats}
         torch.cuda.empty_cache()
         log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
+    clustered = corpora["clustered"]
+    del corpora
+    (launches["gather_dots"], launches["gather_dots@build"], graph_stats) = graph_path(
+        SmallCorpus("clustered", clustered.x[:GRAPH_ROWS], clustered.queries))
+    kernel_stats.update(graph_stats)
+    log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **kernel_stats[name]}

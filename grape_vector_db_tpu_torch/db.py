@@ -6,13 +6,12 @@ ingest (single add delegates to batch, lib.rs:309-356), fixed mutation order
 on delete (index before storage, lib.rs:380-390), and rebuild_index from
 stored documents (lib.rs:560-581).
 
-Ported so far: every single-chip index kind but ``graph`` (flat, binary,
-int8, pq, the IVF family ivf / ivf_int8 / ivf_int4, ivf_pq and the
-projected ivf_int8_proj / ivf_int4_proj) over the memory store, with ingest,
-search, delete, rebuild, optimize, tuning, stats and health. The graph kind,
-the sharded kinds, the file store, index snapshots, backups, listing,
-pipelined ingest and the enterprise wrappers are still to be ported
-(ROADMAP.md, queue A).
+Ported so far: every single-chip index kind (flat, binary, int8, pq, the
+IVF family ivf / ivf_int8 / ivf_int4, ivf_pq, the projected ivf_int8_proj /
+ivf_int4_proj, and graph) over the memory store, with ingest, search,
+delete, rebuild, optimize, tuning, stats and health. The sharded kinds, the
+file store, index snapshots, backups, listing, pipelined ingest and the
+enterprise wrappers are still to be ported (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -35,8 +34,8 @@ from grape_vector_db_tpu_torch.engine.planner import QueryEngine
 from grape_vector_db_tpu_torch.engine.sparse import SparseIndex
 from grape_vector_db_tpu_torch.errors import InvalidArgumentError, StateError
 from grape_vector_db_tpu_torch.index import (BinaryDeviceIndex, FlatDeviceIndex,
-                                             Int4IvfDeviceIndex, Int8DeviceIndex,
-                                             Int8IvfDeviceIndex, IvfDeviceIndex,
+                                             GraphDeviceIndex, Int4IvfDeviceIndex,
+                                             Int8DeviceIndex, Int8IvfDeviceIndex, IvfDeviceIndex,
                                              IvfPqDeviceIndex, PqDeviceIndex,
                                              ProjectedInt4IvfIndex, ProjectedInt8IvfIndex,
                                              VectorIndex)
@@ -74,7 +73,7 @@ def build_index(config: VectorDbConfig, device: str | torch.device = "cuda") -> 
     """The index for ``config`` on ``device``, with the arguments the JAX
     factory passes. Ported kinds: ``"flat"``, ``"binary"``, ``"int8"``,
     ``"pq"``, ``"ivf"``, ``"ivf_int8"``, ``"ivf_int4"``, ``"ivf_pq"``,
-    ``"ivf_int8_proj"`` and ``"ivf_int4_proj"``; ``"graph"``, the
+    ``"ivf_int8_proj"``, ``"ivf_int4_proj"`` and ``"graph"``; the
     ``sharded_*`` kinds and ``auto_shard`` raise."""
     kind = config.index.kind
     if config.device.auto_shard and kind in ("flat", "ivf", "ivf_int8", "ivf_int4"):
@@ -85,10 +84,6 @@ def build_index(config: VectorDbConfig, device: str | torch.device = "cuda") -> 
         raise InvalidArgumentError(
             f"index kind {kind!r} is not ported to the PyTorch package yet: the "
             "sharded kinds wait for ROADMAP A.14 (parallel/mesh.py on torch.distributed)")
-    if kind == "graph":
-        raise InvalidArgumentError(
-            "index kind 'graph' is not ported to the PyTorch package yet: it waits "
-            "for ROADMAP A.13 (graph search and kernel B11)")
     common = dict(
         dimension=config.vector_dimension,
         metric=config.distance,
@@ -111,6 +106,10 @@ def build_index(config: VectorDbConfig, device: str | torch.device = "cuda") -> 
                              rescore_ratio=config.index.rescore_ratio)
     if kind == "int8":
         return Int8DeviceIndex(**common, rescore=config.index.int8_rescore)
+    if kind == "graph":
+        return GraphDeviceIndex(**common, m=config.index.m,
+                                ef_search=config.index.ef_search,
+                                ef_construction=config.index.ef_construction)
     ivf = dict(common, nlist=config.index.nlist, nprobe=config.index.nprobe)
     if kind == "ivf":
         return IvfDeviceIndex(**ivf)

@@ -13,14 +13,18 @@ import numpy as np
 import pytest
 import torch
 
-from grape_vector_db_tpu_torch.index import (BinaryDeviceIndex, FlatIndex, Int4IvfDeviceIndex,
-                                             Int8IvfDeviceIndex, IvfDeviceIndex,
-                                             ProjectedInt4IvfIndex, ProjectedInt8IvfIndex)
+from grape_vector_db_tpu_torch.index import (BinaryDeviceIndex, FlatIndex, GraphDeviceIndex,
+                                             Int4IvfDeviceIndex, Int8IvfDeviceIndex,
+                                             IvfDeviceIndex, ProjectedInt4IvfIndex,
+                                             ProjectedInt8IvfIndex)
 from grape_vector_db_tpu_torch.ops import distance as tdist
+from grape_vector_db_tpu_torch.ops import gather as tgat
+from grape_vector_db_tpu_torch.ops import graph as tgraph
 from grape_vector_db_tpu_torch.ops import hamming as tham
 from grape_vector_db_tpu_torch.ops import ivf as tivf
 from grape_vector_db_tpu_torch.ops import segmax as tseg
 from grape_vector_db_tpu_torch.ops.int4 import quantize_int4
+from torch_parity import assert_hits_match
 
 
 @pytest.fixture
@@ -305,3 +309,129 @@ def test_int8_dots_on_cuda_are_the_exact_products(cuda, d):
     got = tint8._int8_dots(torch.from_numpy(qi).to(cuda).to(torch.bfloat16),
                            torch.from_numpy(codes).to(cuda))
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _gather_inputs(g, b, c, d, n, integer):
+    if integer:
+        q = g.integers(-3, 4, (b, d)).astype(np.float32)
+        v = g.integers(-3, 4, (n, d)).astype(np.float32)
+    else:
+        q = g.standard_normal((b, d)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        v = g.standard_normal((n, d)).astype(np.float32)
+    ids = g.integers(0, n, (b, c)).astype(np.int32)
+    return torch.from_numpy(q), torch.from_numpy(v), torch.from_numpy(ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,d,n", [(128, 256, 768, 20000), (128, 64, 768, 20000),
+                                     (2048, 576, 768, 20000), (5, 37, 100, 300),
+                                     (5, 37, 1536, 300), (1, 1, 1, 1)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_gather_dots_kernel_matches_plain(cuda, b, c, d, n, dtype, integer):
+    """B11 against its plain version at the beam, entry and build shapes
+    (D = 768) and ragged ones (D = 100: rows not in 16-byte chunks; 1536):
+    small integers give exact sums, so equal; Gaussian floats within 1e-5
+    of each entry's sum of |q_d v_d| (f32 sums in another order)."""
+    g = np.random.default_rng(b + c + d)
+    q, v, ids = (t.to(cuda) for t in _gather_inputs(g, b, c, d, n, integer))
+    v = v.to(getattr(torch, dtype))
+    before = tgat.LAUNCHES["gather_dots"]
+    got = tgat.gather_dots(q, v, ids)
+    torch.cuda.synchronize()
+    assert tgat.LAUNCHES["gather_dots"] == before + 1
+    want = tgat.gather_dots_ref(q, v, ids)
+    if integer:
+        assert torch.equal(got, want)
+    else:
+        qr = q.to(v.dtype).float().abs()
+        scale = torch.bmm(v.float().abs()[ids.long()], qr[:, :, None])[:, :, 0]
+        assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gather_dots_kernel_clamps_and_raises(cuda, monkeypatch, dtype):
+    """Negative and too-large ids read rows 0 and N-1 in the kernel as in the
+    plain version; a CUDA tensor never falls back to the plain version."""
+    g = np.random.default_rng(9)
+    q, v, _ = (t.to(cuda) for t in _gather_inputs(g, 4, 1, 96, 50, True))
+    v = v.to(getattr(torch, dtype))
+    ids = torch.tensor([[0, -1, 5, 50], [49, -7, 60, -1], [1, 2, 3, 1 << 30],
+                        [-(1 << 30), 49, 0, 48]], dtype=torch.int32, device=cuda)
+    got = tgat.gather_dots(q, v, ids, impl="pallas")
+    assert torch.equal(got, tgat.gather_dots_ref(q, v, ids))
+    assert torch.equal(got, tgat.gather_dots(q, v, ids.clamp(0, 49), impl="pallas_interpret"))
+    with pytest.raises(ValueError, match="int32"):
+        tgat.gather_dots(q, v, ids.long())
+    with pytest.raises(ValueError, match="CUDA device"):
+        tgat.gather_dots(q.cpu(), v, ids)
+
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(tgat, "build_kernels", no_library)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tgat.gather_dots(q, v, ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_graph_build_and_beam_on_cuda_equal_cpu(cuda, dtype):
+    """Integer data with the dot metric: the build and the beam on the card
+    (B11 in every step) equal the CPU's (plain versions), id for id and
+    value for value."""
+    g = np.random.default_rng(10)
+    v = torch.from_numpy(g.integers(-2, 3, (3000, 32)).astype(np.float32)).to(
+        getattr(torch, dtype))
+    valid = torch.from_numpy(g.random(3000) >= 0.05)
+    norms = torch.linalg.vector_norm(v.float(), dim=1)
+    q = torch.from_numpy(g.integers(-2, 3, (16, 32)).astype(np.float32))
+    entries = torch.arange(0, 3000, 97, dtype=torch.int32)
+    out = []
+    tgat.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        args = [t.to(dev) for t in (v, norms, valid)]
+        nb = tgraph.build_knn_graph(*args, m=16, rounds=5, nn_sample=8, chunk=1024,
+                                    metric="dot")
+        vals, idxs = tgraph.beam_search(q.to(dev), *args, entries.to(dev),
+                                        torch.from_numpy(nb).to(dev), k=10, pool=64,
+                                        expand=8, iters=8, metric="dot")
+        out.append((nb, vals.cpu(), idxs.cpu()))
+    assert tgat.LAUNCHES["gather_dots"] == 5 * 3 + 1 + 8   # 5 rounds x 3 chunks, entry, iters
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1]) and torch.equal(out[0][2], out[1][2])
+
+
+@pytest.mark.cuda
+def test_graph_index_on_cuda_matches_cpu(cuda):
+    """One graph state on the CPU and on the card: the same hits through the
+    k-means entry probe, the beam (B11), the fresh region and a delete;
+    scores within 1e-4 and ids up to near ties within it (f32 sums in
+    different orders)."""
+    g = np.random.default_rng(11)
+    v = g.standard_normal((5000, 64)).astype(np.float32)
+    ids = [f"d{i}" for i in range(len(v))]
+    cpu = GraphDeviceIndex(64, device="cpu")
+    cpu.add_batch(ids[:4800], v[:4800])
+    cpu.optimize()
+    cpu.add_batch(ids[4800:], v[4800:])
+    cpu.remove_batch(ids[:30])
+    assert cpu.centroids is not None and cpu.get_stats().extra["fresh"] == 200
+
+    def flat(f):
+        return dict(vectors=f.vectors.float().numpy(), norms=f.norms.numpy(),
+                    valid=f.valid.numpy(), slot_to_id=f._slot_to_id, free=f._free,
+                    high_water=f._high_water)
+
+    card = GraphDeviceIndex(64, device=cuda)
+    card.load_state(graph_store=flat(cpu._graph_store), fresh=flat(cpu._fresh),
+                    neighbors=cpu.neighbors.numpy(), entries=None,
+                    centroids=cpu.centroids.numpy(), reps=cpu.reps.numpy(),
+                    graph_n=cpu._graph_n, nb_cap=cpu._nb_cap, builds=cpu.builds)
+    q = v[20:36] + 0.1 * g.standard_normal((16, 64)).astype(np.float32)
+    tgat.reset_launch_counts()
+    got = card.search_batch(q, 10)
+    assert tgat.LAUNCHES["gather_dots"] == 1 + card.search_iters
+    assert_hits_match(got, cpu.search_batch(q, 10), 1e-4)

@@ -134,8 +134,8 @@ def test_text_and_hybrid_search_match_jax(rng):
         tdb.add_document(Document(id="late", content="x", vector=q))
 
 
-@pytest.mark.parametrize("kind", ["sharded_flat", "sharded_ivf", "sharded_ivf_int8", "graph",
-                                  "auto_shard"])
+@pytest.mark.parametrize("kind", ["sharded_flat", "sharded_ivf", "sharded_ivf_int8",
+                                  "sharded_ivf_int4", "auto_shard"])
 def test_unported_index_kinds_raise(kind):
     cfg = VectorDbConfig(vector_dimension=D)
     if kind == "auto_shard":
