@@ -11,6 +11,11 @@ the port's paths through ``VectorDatabase`` on the card:
 
 - flat (cosine, bf16, D=768) at 1,048,576 seeded Gaussian documents, against
   a numpy oracle; its large-corpus search runs B1/B2 (``csrc/segmax.cu``);
+- the segment-max entry points at the same width (1,048,576 x 768 bf16,
+  B=128): ``segmax_topk`` with both layouts (B9, B10), ``segmax4_topk(impl=
+  "sup")`` (B7) and ``segmax2_topk(impl="selfold")`` (B8), at k = 10, k = 3
+  and filtered, against the exact one-matmul oracle on the card, after each
+  of B7-B10 is held against its plain version;
 - the IVF family at the repository's 1M IVF configuration (bench.py:483-506:
   1,048,576 x 768 clustered rows, 16,384 Gaussian centres + 0.25 noise,
   nlist 4096, nprobe 16): ``ivf`` runs B3, ``ivf_int8`` B4 and ``ivf_int4``
@@ -105,6 +110,15 @@ KERNELS = {
                 "grape_vector_db_tpu/ops/segmax_pallas.py:354"),
     "segmax2": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
                 "grape_vector_db_tpu/ops/segmax_pallas.py:124"),
+    # B9, B10, B7, B8: the segment-max entry points' kernels
+    "segmax": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
+               "grape_vector_db_tpu/ops/segmax_pallas.py:53"),
+    "segmax_contig": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
+                      "grape_vector_db_tpu/ops/segmax_pallas.py:728"),
+    "segmax4_sup": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
+                    "grape_vector_db_tpu/ops/segmax_pallas.py:401"),
+    "segmax2_selfold": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
+                        "grape_vector_db_tpu/ops/segmax_pallas.py:237"),
     "ivf_probe": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
                   "grape_vector_db_tpu/ops/ivf_pallas.py:155"),
     "ivf_probe_int8": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
@@ -170,14 +184,18 @@ def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S) -> dict:
 def ptxas_summary(build_log: str):
     """One line per compiled kernel from nvcc's -Xptxas -v output."""
     fmts = {"0": "bf16", "1": "f32", "2": "int8", "3": "int4"}
+    # segmax_kernel<TOPJ, T, VARIANT> -> the LAUNCHES key of the instance
+    segmax_names = {("4", "0"): "segmax4", ("2", "0"): "segmax2", ("1", "0"): "segmax",
+                    ("1", "1"): "segmax_contig", ("2", "2"): "segmax2_selfold",
+                    ("4", "3"): "segmax4_sup"}
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)E(\w+?)EEv", line)
+        m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)E(\w+?)Li(\d)EEEv", line)
         p = re.search(r"Compiling entry function '.*probe_kernelILi(\d)E+v", line)
         h = re.search(r"Compiling entry function '.*hamming_kernel", line)
         g = re.search(r"Compiling entry function '.*gather_dots_kernelILi(\d)ELb(\d)E", line)
         if m:
-            name = f"segmax{m[1]}<{'bf16' if 'bfloat16' in m[2] else 'f32'}>"
+            name = f"{segmax_names[m[1], m[3]]}<{'bf16' if 'bfloat16' in m[2] else 'f32'}>"
         elif p:
             name = f"ivf_probe<{fmts[p[1]]}>"
         elif h:
@@ -269,9 +287,10 @@ def plane_check(name, got, want, n_vals):
     return err
 
 
-def segmax_phase():
-    """B1 and B2 against their plain versions at the flat path's shapes, then
-    on an exact-arithmetic adversarial case; also times both."""
+def segmax_corpus():
+    """The segment kernels' full-width inputs: [N_ROWS, DIM] bf16 Gaussian rows
+    made on the card from SEED, 5% of them invalid, the cosine weight plane,
+    and BATCH normalized queries."""
     from grape_vector_db_tpu_torch.ops import segmax
 
     dev = torch.device(DEV)
@@ -280,6 +299,32 @@ def segmax_phase():
     valid = torch.rand(N_ROWS, device=dev, generator=gen) >= 0.05
     w = segmax.make_weight_plane(v.float().norm(dim=1), valid, "cosine")
     q = torch.nn.functional.normalize(torch.randn(BATCH, DIM, device=dev, generator=gen), dim=1)
+    return v, valid, w, q
+
+
+def integer_segments():
+    """The exact-arithmetic adversarial case: small integers, so every sum is
+    exact in f32 and ties are everywhere; duplicate rows inside one segment
+    and one segment whose rows are all invalid. (q [40, 128], v [8192, 128]
+    f32, w [8192]) on the card."""
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(SEED)
+    vi = rng.integers(-2, 3, (8192, 128)).astype(np.float32)
+    for m in (3, 7, 20):
+        vi[4096 + 5 + 128 * m] = vi[77]
+    qi = rng.integers(-2, 3, (40, 128)).astype(np.float32)
+    wi = (rng.random(8192) >= 0.05).astype(np.float32)
+    wi[[9 + 128 * m for m in range(32)]] = 0.0
+    return (torch.from_numpy(qi).to(dev), torch.from_numpy(vi).to(dev),
+            torch.from_numpy(wi).to(dev))
+
+
+def segmax_phase():
+    """B1 and B2 against their plain versions at the flat path's shapes, then
+    on an exact-arithmetic adversarial case; also times both."""
+    from grape_vector_db_tpu_torch.ops import segmax
+
+    v, valid, w, q = segmax_corpus()
     out = {}
     for name, topj, kern, plain in (
             ("segmax4", 4, segmax.segmax4_scores, segmax.segmax4_scores_ref),
@@ -300,19 +345,10 @@ def segmax_phase():
             f"(B={BATCH}, N={N_ROWS}, D={DIM}, bf16)")
     del v, valid, w, q
 
-    # exact arithmetic: small integers, so every sum is exact in f32 and ties
-    # are everywhere; duplicate rows inside one segment and one segment whose
-    # rows are all invalid. Every plane must match exactly.
-    rng = np.random.default_rng(SEED)
-    vi = rng.integers(-2, 3, (8192, 128)).astype(np.float32)
-    for m in (3, 7, 20):
-        vi[4096 + 5 + 128 * m] = vi[77]
-    qi = rng.integers(-2, 3, (40, 128)).astype(np.float32)
-    wi = (rng.random(8192) >= 0.05).astype(np.float32)
-    wi[[9 + 128 * m for m in range(32)]] = 0.0
-    qi, wi = torch.from_numpy(qi).to(dev), torch.from_numpy(wi).to(dev)
+    # exact arithmetic: every plane must match exactly
+    qi, vi, wi = integer_segments()
     for dtype in (torch.bfloat16, torch.float32):
-        vt = torch.from_numpy(vi).to(dev).to(dtype)
+        vt = vi.to(dtype)
         for name, kern, plain in (("segmax4", segmax.segmax4_scores, segmax.segmax4_scores_ref),
                                   ("segmax2", segmax.segmax2_scores, segmax.segmax2_scores_ref)):
             got = kern(qi, vt, wi)
@@ -323,6 +359,220 @@ def segmax_phase():
             log(f"[kernels] {name} {dtype} adversarial (ties, duplicates, invalid "
                 "segment, B=40): every plane equal")
     return out
+
+
+# -- B7-B10 and the segment-max entry points ----------------------------------------
+
+# B7-B10: LAUNCHES key -> (label, the entry point that runs it, its options)
+SEGMAX_ENTRY = {
+    "segmax": ("segmax_topk(layout='strided')", "segmax_topk", {}),
+    "segmax_contig": ("segmax_topk(layout='contig')", "segmax_topk", {"layout": "contig"}),
+    "segmax4_sup": ("segmax4_topk(impl='sup')", "segmax4_topk", {"impl": "sup"}),
+    "segmax2_selfold": ("segmax2_topk(impl='selfold')", "segmax2_topk", {"impl": "selfold"}),
+}
+
+
+def check_topk(name, vals, ids, o_vals, o_ids):
+    """[B, k] (vals, ids) on the card against an oracle's: ids distinct and
+    equal as sets up to near ties (TOL of the k-th score), values rank by
+    rank within TOL, -inf where the oracle has it. Returns the largest
+    value difference."""
+    vals, ids = vals.double().cpu().numpy(), ids.long().cpu().numpy()
+    o_vals, o_ids = o_vals.double().cpu().numpy(), o_ids.long().cpu().numpy()
+    require(vals.shape == o_vals.shape, f"{name}: shape {vals.shape} vs {o_vals.shape}")
+    require((np.isneginf(vals) == np.isneginf(o_vals)).all(), f"{name}: -inf positions differ")
+    fin = np.isfinite(o_vals)
+    err = float(np.abs(vals[fin] - o_vals[fin]).max())
+    require(err <= TOL, f"{name}: values differ by {err} > {TOL}")
+    for r in range(len(vals)):
+        got = dict(zip(ids[r][fin[r]].tolist(), vals[r][fin[r]].tolist()))
+        want = dict(zip(o_ids[r][fin[r]].tolist(), o_vals[r][fin[r]].tolist()))
+        require(len(got) == fin[r].sum(), f"{name} q{r}: duplicate ids {ids[r]}")
+        kth = o_vals[r][fin[r]].min()
+        for i in set(got) ^ set(want):
+            s = got.get(i, want.get(i))
+            require(abs(s - kth) <= TOL, f"{name} q{r}: id {i} (score {s}) differs from the "
+                    f"oracle away from the k-th score {kth}")
+    return err
+
+
+def segmax_variants_phase():
+    """B9, B10, B7 and B8 against their plain versions at the flat path's
+    shapes (1,048,576 x 768 bf16, B = 128, 5% of rows invalid) and on the
+    exact-arithmetic case; then the entry points that run them, at k = 10
+    and k = 3 and with a 10% filter, against the exact one-matmul oracle on
+    the card and the plain engines (B1, B2), with the launch counts set to 0
+    just before and read just after; then times. Returns (kernel stats,
+    launches)."""
+    from grape_vector_db_tpu_torch.ops import segmax
+    from grape_vector_db_tpu_torch.ops.distance import prepare_queries, score_block
+
+    t_phase = time.perf_counter()
+    v, valid, w, q = segmax_corpus()
+    norms = v.float().norm(dim=1)
+    shape = f"[{BATCH},{DIM}] x [{N_ROWS},{DIM}] bf16"
+
+    def selfold(q_, v_, w_):
+        return segmax.segmax2_scores(q_, v_, w_, impl="selfold")
+
+    def selfold_ref(q_, v_, w_):
+        return segmax.segmax2_scores_ref(q_, v_, w_, impl="selfold")
+
+    # name -> (wrapper, plain version, value planes, bytes it writes)
+    nseg, nblk = N_ROWS // 32, N_ROWS // 4096
+    kernels = {
+        "segmax": (segmax.segmax_scores, segmax.segmax_scores_ref, 1, BATCH * nseg * 4),
+        "segmax_contig": (segmax.segmax_scores_contig, segmax.segmax_scores_contig_ref, 1,
+                          BATCH * nseg * 4),
+        "segmax2_selfold": (selfold, selfold_ref, 2, 3 * BATCH * nseg * 4),
+        "segmax4_sup": (segmax.segmax4_sup_scores, segmax.segmax4_sup_scores_ref, 4,
+                        7 * BATCH * nseg * 4 + 2 * BATCH * nblk * 4),
+    }
+    errs = {}
+    for name, (kern, plain, nv, _) in kernels.items():
+        got = kern(q, v, w)
+        torch.cuda.synchronize()
+        want = plain(q, v, w)
+        if name == "segmax_contig":          # [N/32, B]: the transposed twin
+            got, want = (got.T,), (want.T,)
+        elif name == "segmax":
+            got, want = (got,), (want,)
+        elif name == "segmax2_selfold":      # (m1, i1, m2) -> values first
+            b2 = segmax.segmax2_scores(q, v, w)
+            require(torch.equal(got[0], b2[0]) and torch.equal(got[2], b2[2]),
+                    "segmax2_selfold: values differ from B2's on the same inputs")
+            got, want = (got[0], got[2], got[1]), (want[0], want[2], want[1])
+        else:                                # segmax4_sup: B1's planes, then s1, s2
+            for t in (0, 1):
+                require(torch.equal(got[7 + t], got[t].view(BATCH, nblk, 128).amax(dim=2)),
+                        f"segmax4_sup: s{t + 1} is not the block maxima of its own m{t + 1}")
+            require(all(torch.equal(a, b) for a, b in zip(got[:7], segmax.segmax4_scores(q, v, w))),
+                    "segmax4_sup: planes differ from B1's on the same inputs")
+            s_err = (torch.stack(got[7:]) - torch.stack(want[7:])).abs().max().item()
+            require(s_err <= TOL, f"segmax4_sup: block maxima differ by {s_err}")
+            got, want = got[:7], want[:7]
+        errs[name] = plane_check(f"{name} {shape}", got, want, nv)
+    log("[kernels] segmax4_sup: s1, s2 equal the block maxima of its own m1, m2, and its "
+        "seven planes equal B1's; segmax2_selfold's values equal B2's")
+
+    qi, vi, wi = integer_segments()
+    for dtype in (torch.bfloat16, torch.float32):
+        vt = vi.to(dtype)
+        for name, (kern, plain, _, _) in kernels.items():
+            got, want = kern(qi, vt, wi), plain(qi, vt, wi)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            require(all(torch.equal(g.float(), p.float()) for g, p in zip(got, want)),
+                    f"{name} {dtype}: adversarial planes differ")
+        diff = (selfold(qi, vt, wi)[1] != segmax.segmax2_scores(qi, vt, wi)[1]).sum().item()
+        require(diff > 0, "segmax2_selfold: i1 equals B2's everywhere on the tie case")
+        log(f"[kernels] segmax, segmax_contig, segmax4_sup, segmax2_selfold {dtype} adversarial "
+            f"(B=40): every plane equal; selfold's i1 differs from B2's at {diff} ties")
+
+    # the entry points: this phase's main path, each call one launch of its kernel
+    rng = np.random.default_rng(SEED + 21)
+    allowed = torch.from_numpy(rng.random(N_ROWS) < 0.1).to(v.device)
+    queries = torch.from_numpy(rng.standard_normal((BATCH, DIM), dtype=np.float32)).to(v.device)
+    calls = [(name, k, m) for name in SEGMAX_ENTRY
+             for k, m in ((10, None), (3, None), (10, allowed))]
+    results = {}
+    reset_counts()
+    for name, k, m in calls:
+        label, fn, kw = SEGMAX_ENTRY[name]
+        before = dict(segmax.LAUNCHES)
+        results[name, k, m is None] = getattr(segmax, fn)(queries, v, norms, valid, k=k,
+                                                          mask=m, **kw)
+        torch.cuda.synchronize()
+        delta = {key: segmax.LAUNCHES[key] - before[key] for key in before}
+        require(delta[name] == 1 and sum(delta.values()) == 1,
+                f"{label} k={k}: launches {delta}, wanted one of {name}")
+    counts = read_counts()
+    launches = {name: counts[name] for name in SEGMAX_ENTRY}
+    log(f"[segmax entry] {len(calls)} calls (4 entry points x k=10, k=3, k=10 with a 10% "
+        f"filter) at {N_ROWS} x {DIM}, B={BATCH}; launches {launches}")
+
+    qp = prepare_queries(queries, "cosine")
+    oracle = {}
+    for unfiltered, m in ((True, None), (False, allowed)):
+        s = score_block(qp, v, norms, valid if m is None else valid & m, "cosine")
+        oracle[unfiltered] = torch.topk(s, 10, dim=1)
+        del s
+    plain_engines = {}
+    for k, unfiltered in ((10, True), (3, True), (10, False)):
+        m = None if unfiltered else allowed
+        plain_engines["segmax4_sup", k, unfiltered] = segmax.segmax4_topk(
+            queries, v, norms, valid, k=k, mask=m)
+        plain_engines["segmax2_selfold", k, unfiltered] = segmax.segmax2_topk(
+            queries, v, norms, valid, k=k, mask=m)
+    worst = 0.0
+    for (name, k, unfiltered), (vals, ids) in results.items():
+        o_vals, o_ids = oracle[unfiltered]
+        tag = f"{SEGMAX_ENTRY[name][0]} k={k}{'' if unfiltered else ' filtered 10%'}"
+        worst = max(worst, check_topk(tag, vals, ids, o_vals[:, :k], o_ids[:, :k]))
+        if not unfiltered:
+            require(bool(allowed[ids.long()].all()), f"{tag}: a result broke the filter")
+        if (name, k, unfiltered) in plain_engines:
+            check_topk(f"{tag} against impl='plain' / 'eqfold'", vals, ids,
+                       *plain_engines[name, k, unfiltered])
+    log(f"[segmax entry] every answer agrees with the exact oracle (score_block + torch.topk "
+        f"on the card) and with impl='plain' / 'eqfold': ids as sets up to near ties, values "
+        f"within {TOL} (largest difference {worst:.3g}); filtered results obey the filter")
+
+    out = {}
+    for name, (kern, plain, _, written) in kernels.items():
+        (k1, k2), (p1, p2) = in_turns(lambda: kern(q, v, w), lambda: plain(q, v, w))
+        nbytes = N_ROWS * DIM * 2 + N_ROWS * 4 + BATCH * DIM * 2 + written
+        out[name] = {"max_abs_err": errs[name], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                     **bound(nbytes, 2.0 * BATCH * N_ROWS * DIM), "library_ms": None}
+        log(f"[times] {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+            f"bound {out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
+            f"({nbytes / 1e9:.4f} GB; B={BATCH}, N={N_ROWS}, D={DIM}, bf16)")
+
+    # the nearest library composition of B9 and B10: four calls, the [B, N]
+    # score plane materialized
+    qc = q.to(torch.bfloat16)
+
+    def lib_strided():
+        s = torch.mm(qc, v.T, out_dtype=torch.float32)
+        s = torch.where(w[None, :] == 0, float("-inf"), s * w[None, :])
+        return s.view(BATCH, nblk, 32, 128).amax(dim=2).view(BATCH, nseg)
+
+    def lib_contig():
+        s = torch.mm(v, qc.T, out_dtype=torch.float32)
+        s = torch.where(w[:, None] == 0, float("-inf"), s * w[:, None])
+        return s.view(nseg, 32, BATCH).amax(dim=1)
+
+    for name, fn, kern in (("segmax", lib_strided, segmax.segmax_scores),
+                           ("segmax_contig", lib_contig, segmax.segmax_scores_contig)):
+        ref = kern(q, v, w)
+        lib = fn()
+        fin = torch.isfinite(ref)
+        require(torch.equal(fin, torch.isfinite(lib))
+                and (lib - ref)[fin].abs().max().item() <= TOL,
+                f"{name}: the library composition computes another function")
+        out[name]["library_ms"] = cuda_ms(fn, 10)
+        log(f"[times] {name} library composition (torch.mm out_dtype=f32, multiply, where, "
+            f"amax: 4 calls): {out[name]['library_ms']:.4f} ms")
+
+    m1, _, _, _, _, _, _, s1, _ = segmax.segmax4_sup_scores(q, v, w)
+    for kk in (10, 3):
+        def two():
+            return segmax._twolevel_topk_pre(m1, kk, s1)
+
+        def full():
+            return torch.topk(m1, kk, dim=1)
+
+        (t1, t2), (f1, f2) = in_turns(two, full, 20, 20)
+        log(f"[times] sup selection k={kk} over m1 [{BATCH},{nseg}]: two-level from s1 "
+            f"{t1:.4f} / {t2:.4f} ms, torch.topk on the full plane {f1:.4f} / {f2:.4f} ms")
+    for name, (label, fn, kw) in SEGMAX_ENTRY.items():
+        ms = cuda_ms(lambda: getattr(segmax, fn)(queries, v, norms, valid, k=10, **kw), 10)
+        log(f"[times] {label} k=10 B={BATCH} at {N_ROWS} x {DIM}: {ms:.4f} ms on the card "
+            f"(phase 1 {out[name]['ms']:.4f} ms of it)")
+    del v, valid, w, q, norms
+    log(f"[time] segmax variants phase {time.perf_counter() - t_phase:.1f} s")
+    return out, launches
 
 
 # -- B3, B4, B5 on an adversarial case ------------------------------------------
@@ -1667,10 +1917,14 @@ def main():
     t_start = time.perf_counter()
     setup()
     kernel_stats = segmax_phase()
+    variant_stats, variant_launches = segmax_variants_phase()
+    kernel_stats.update(variant_stats)
+    torch.cuda.empty_cache()
     probe_adversarial()
     kernel_stats["hamming"] = hamming_phase()
     torch.cuda.empty_cache()
     launches = flat_path()
+    launches.update(variant_launches)
     torch.cuda.empty_cache()
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     corpus = Clustered(IVF_ROWS)

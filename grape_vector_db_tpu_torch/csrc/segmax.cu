@@ -1,21 +1,32 @@
 // Segment top-j kernels for the exact large-corpus flat search (Hopper, sm_90a).
 //
-// Replaces the Pallas TPU kernels of grape_vector_db_tpu/ops/segmax_pallas.py:
-//   TOPJ = 4: _segmax4_kernel (fold _segmax4_core), wrapper segmax4_scores_pallas
-//   TOPJ = 2: _segmax2_kernel ("eqfold"),           wrapper segmax2_scores_pallas
-// and is bound to PyTorch through a plain C interface (ctypes) by
-// grape_vector_db_tpu_torch/ops/segmax.py, which also holds the plain PyTorch
-// version of the same contract (segmax4_scores_ref / segmax2_scores_ref).
+// One template, six instances, each replacing a Pallas TPU kernel of
+// grape_vector_db_tpu/ops/segmax_pallas.py:
+//   <4, T, PLAIN>   B1  _segmax4_kernel (fold _segmax4_core), segmax4_scores_pallas
+//   <2, T, PLAIN>   B2  _segmax2_kernel ("eqfold"),           segmax2_scores_pallas
+//   <1, T, PLAIN>   B9  _segmax_kernel (maxima only),         segmax_scores_pallas
+//   <1, T, CONTIG>  B10 _segmax_kernel_contig,                segmax_scores_pallas_contig
+//   <2, T, SELFOLD> B8  _segmax2_kernel_selfold,              segmax2_scores_pallas(impl="selfold")
+//   <4, T, SUP>     B7  _segmax4_sup_kernel,                  segmax4_sup_scores_pallas
+// (T: bf16 or f32 storage). It is bound to PyTorch through a plain C
+// interface (ctypes) by grape_vector_db_tpu_torch/ops/segmax.py, which also
+// holds the plain PyTorch version of every instance's contract.
 //
 // Contract. For query b and corpus row r:
 //   s[b, r] = dot(q[b], v[r]) * w[r]   (f32 accumulation; q already in the
 //             storage type), and s = -inf where w[r] == 0 (select, not add).
 // Segments are strided and block-major: segment g = blk * 128 + j holds rows
-// blk * 4096 + j + 128 * m for members m < 32. Per (b, g) the kernel emits the
-// TOPJ largest of the 32 scores (a multiset, -inf included) and the member
-// index m of ranks 1 .. TOPJ-1, where members are ordered by (score
+// blk * 4096 + j + 128 * m for members m < 32 (CONTIG: rows 32 * g + m, so
+// chunk m of a block is rows blk * 4096 + 32 * j + m). Per (b, g) the kernel
+// emits the TOPJ largest of the 32 scores (a multiset, -inf included) and the
+// member index m of ranks 1 .. TOPJ-1, where members are ordered by (score
 // descending, m ascending) -- the rule the Pallas "eqfold" recovery gives,
-// including ties and all -inf segments (which yield m = 0, 1, 2).
+// including ties and all -inf segments (which yield m = 0, 1, 2). SELFOLD
+// orders tied members by their 5-bit bit-reversed index instead, the rule of
+// the Pallas fold that carries the index through five halvings, each of which
+// keeps the lower half on a tie. CONTIG stores its maxima transposed,
+// [N/32, B]. SUP also writes s[0 / 1][b][blk], the maxima of the block's 128
+// rank-1 / rank-2 values.
 //
 // What bounds it on an H100. At B = 128 and a 1,048,576 x 768 bf16 corpus the
 // corpus read is 1.6 GB (about 0.5 ms at 3.35 TB/s) and the products are
@@ -25,16 +36,21 @@
 // are written.
 //
 // Design. One thread block takes 32 queries x one 4096-row corpus block. The
-// 32 members of the block's 128 segments are 32 contiguous 128-row chunks
-// (member m of segment j is row 128 * m + j), so the block walks m = 0..31,
+// 32 members of the block's 128 segments are 32 128-row chunks (member m of
+// segment j is row 128 * m + j), so the block walks m = 0..31,
 // computes the [32 x 128] score tile of chunk m with K-tiles staged in shared
 // memory (bf16: mma.sync m16n8k16 with f32 accumulation; f32 storage: FMA in
 // full f32), and folds each score into a per-(query, segment) top-j list kept
 // in registers (values, plus the member indices packed into one word).
-// Members arrive in ascending m, so a stable insertion that places a new
-// score below equal ones gives the (score desc, m asc) order with no index
-// bookkeeping beyond the list itself. The tile layout is the
-// mma accumulator layout, so the two storage types share the epilogue.
+// A stable insertion places a new score below equal ones already listed, so
+// the order in which members arrive is the tie rule: ascending m gives
+// (score desc, m asc); SELFOLD walks the chunks in bit-reversed order, so the
+// member with the smallest bit-reversed index wins a tie. The tile layout is
+// the mma accumulator layout, so the two storage types share the epilogue.
+// SUP's block maxima are one more epilogue: a max over each thread's
+// segments, a shuffle across the 4 lanes that share a query, and shared
+// memory across the 4 warps along segments; each (query tile, block) pair
+// has one thread block, so no atomics are needed.
 // Blocks for the same corpus block are adjacent in the grid (queries on x),
 // so the extra query tiles at B > 32 mostly re-read the corpus from L2.
 // As written the kernel reaches neither bound: a block stages each K-tile
@@ -139,16 +155,19 @@ struct TileProduct<float> {
 constexpr int IDX_BITS = 5;
 
 // Stable insertion of member m's score s into a descending top-TOPJ list.
-// Members arrive as m = 0, 1, 2, ..., so slots t >= m are still empty, and a
-// score goes below every equal score already listed (those have smaller m).
+// `step` counts the members that arrived before this one, so slots
+// t >= step are still empty, and a score goes below every equal score
+// already listed (those arrived earlier). The ascending walk passes
+// step == m; the bit-reversed walk passes its step and the member it reads.
 template <int TOPJ>
-__device__ __forceinline__ void insert(float (&val)[TOPJ], uint32_t& idx, float s, int m) {
+__device__ __forceinline__ void insert(float (&val)[TOPJ], uint32_t& idx, float s, int step,
+                                       int m) {
   // pos: the slots that keep their place (filled, and s does not beat them).
   // pos == TOPJ drops s; every update below is then a no-op, so the
   // insertion needs no branch.
   int pos = 0;
 #pragma unroll
-  for (int t = 0; t < TOPJ; ++t) pos += (m > t && !(s > val[t])) ? 1 : 0;
+  for (int t = 0; t < TOPJ; ++t) pos += (step > t && !(s > val[t])) ? 1 : 0;
 #pragma unroll
   for (int t = TOPJ - 1; t >= 1; --t) {
     if (t > pos) val[t] = val[t - 1];
@@ -162,10 +181,14 @@ __device__ __forceinline__ void insert(float (&val)[TOPJ], uint32_t& idx, float 
   idx = (keep | (static_cast<uint32_t>(m) << sh) | moved) & kMask;
 }
 
-template <int TOPJ, typename T>
+// The walk and the outputs of one instance (see the header).
+enum Variant { PLAIN = 0, CONTIG = 1, SELFOLD = 2, SUP = 3 };
+
+template <int TOPJ, typename T, int VAR>
 __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
 segmax_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ w,
-              float* __restrict__ out_m, int32_t* __restrict__ out_i, int B, int N, int D) {
+              float* __restrict__ out_m, int32_t* __restrict__ out_i, float* __restrict__ out_s,
+              int B, int N, int D) {
   using Cfg = Tile<T>;
   __shared__ __align__(16) T sq[BQ][Cfg::LD];
   __shared__ __align__(16) T sv[SPB][Cfg::LD];
@@ -188,8 +211,13 @@ segmax_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
     for (int t = 0; t < TOPJ; ++t) val[p][t] = -INFINITY;
   }
 
-  for (int m = 0; m < SEG; ++m) {
-    const size_t row0 = (size_t)blk * CB + (size_t)m * SPB;
+  for (int step = 0; step < SEG; ++step) {
+    // SELFOLD reads the member chunks in 5-bit bit-reversed order
+    const int m = VAR == SELFOLD ? (int)(__brev((unsigned)step) >> 27) : step;
+    // row of segment column r in chunk m: strided blk*CB + 128*m + r, or
+    // contiguous blk*CB + 32*r + m
+    const size_t row0 = (size_t)blk * CB + (size_t)m * (VAR == CONTIG ? 1 : SPB);
+    constexpr int RSTRIDE = VAR == CONTIG ? SEG : 1;
     float acc[4][4];
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
@@ -207,7 +235,7 @@ segmax_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
       for (int i = tid; i < SPB * Cfg::VECS_PER_ROW; i += THREADS) {
         const int r = i / Cfg::VECS_PER_ROW, cv = (i % Cfg::VECS_PER_ROW) * Cfg::VEC;
         *reinterpret_cast<uint4*>(&sv[r][cv]) =
-            *reinterpret_cast<const uint4*>(v + (row0 + r) * D + k0 + cv);
+            *reinterpret_cast<const uint4*>(v + (row0 + (size_t)r * RSTRIDE) * D + k0 + cv);
       }
       __syncthreads();
       TileProduct<T>::run(sq, sv, qa, nb, g, t4, acc);
@@ -218,9 +246,9 @@ segmax_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int j = nb + nt * 8 + 2 * t4 + (c & 1);
-        const float wr = __ldg(&w[row0 + j]);
+        const float wr = __ldg(&w[row0 + (size_t)j * RSTRIDE]);
         const float s = (wr == 0.f) ? -INFINITY : acc[nt][c] * wr;
-        insert<TOPJ>(val[nt * 4 + c], idx[nt * 4 + c], s, m);
+        insert<TOPJ>(val[nt * 4 + c], idx[nt * 4 + c], s, step, m);
       }
     }
   }
@@ -233,23 +261,69 @@ segmax_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
       if (b >= B) continue;
       const size_t seg = (size_t)blk * SPB + nb + nt * 8 + 2 * t4 + (c & 1);
       const int p = nt * 4 + c;
+      if constexpr (VAR == CONTIG) {
+        out_m[seg * B + b] = val[p][0];  // transposed [N/32, B]
+      } else {
 #pragma unroll
-      for (int t = 0; t < TOPJ; ++t) out_m[((size_t)t * B + b) * nseg + seg] = val[p][t];
+        for (int t = 0; t < TOPJ; ++t) out_m[((size_t)t * B + b) * nseg + seg] = val[p][t];
 #pragma unroll
-      for (int t = 0; t < TOPJ - 1; ++t)
-        out_i[((size_t)t * B + b) * nseg + seg] = (idx[p] >> (IDX_BITS * t)) & ((1u << IDX_BITS) - 1u);
+        for (int t = 0; t < TOPJ - 1; ++t)
+          out_i[((size_t)t * B + b) * nseg + seg] =
+              (idx[p] >> (IDX_BITS * t)) & ((1u << IDX_BITS) - 1u);
+      }
+    }
+  }
+
+  if constexpr (VAR == SUP) {
+    // block maxima of the rank-1 and rank-2 values: this thread's 8
+    // segments of query rows qa (h = 0) and qa + 8 (h = 1), then the 4
+    // lanes that share those rows, then the 4 warps along segments
+    __shared__ float ssup[4][BQ][2];
+    float r[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        float x = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          x = fmaxf(x, val[nt * 4 + 2 * h][t]);
+          x = fmaxf(x, val[nt * 4 + 2 * h + 1][t]);
+        }
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        r[h][t] = x;
+      }
+    }
+    if (t4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ssup[warp & 3][qa + 8 * h][0] = r[h][0];
+        ssup[warp & 3][qa + 8 * h][1] = r[h][1];
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * BQ) {
+      const int qrow = tid >> 1, t = tid & 1;
+      const float x = fmaxf(fmaxf(ssup[0][qrow][t], ssup[1][qrow][t]),
+                            fmaxf(ssup[2][qrow][t], ssup[3][qrow][t]));
+      const int b = q0 + qrow;
+      if (b < B) out_s[((size_t)t * B + b) * (N / CB) + blk] = x;
     }
   }
 }
 
-template <int TOPJ, typename T>
+template <int TOPJ, typename T, int VAR>
 cudaError_t launch(const void* q, const void* v, const float* w, float* out_m, int32_t* out_i,
-                   int B, int N, int D, cudaStream_t stream) {
+                   float* out_s, int B, int N, int D, cudaStream_t stream) {
   const dim3 grid((B + BQ - 1) / BQ, N / CB);
-  segmax_kernel<TOPJ, T><<<grid, THREADS, 0, stream>>>(static_cast<const T*>(q),
-                                                       static_cast<const T*>(v), w, out_m,
-                                                       out_i, B, N, D);
+  segmax_kernel<TOPJ, T, VAR><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(v), w, out_m, out_i, out_s, B, N, D);
   return cudaGetLastError();
+}
+
+bool shape_ok(int B, int N, int D) {
+  return B > 0 && N > 0 && N % CB == 0 && N / CB <= 65535 && D > 0 && D % 128 == 0;
 }
 
 }  // namespace
@@ -261,16 +335,48 @@ cudaError_t launch(const void* q, const void* v, const float* w, float* out_m, i
 extern "C" int gvdb_segmax(int topj, int dtype, int device, const void* q, const void* v,
                            const float* w, float* out_m, int32_t* out_i, int B, int N, int D,
                            void* stream) {
-  if (B <= 0 || N <= 0 || N % CB != 0 || N / CB > 65535 || D <= 0 || D % 128 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, N, D)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (topj == 4 && dtype == 0) return (int)launch<4, __nv_bfloat16>(q, v, w, out_m, out_i, B, N, D, s);
-  if (topj == 4 && dtype == 1) return (int)launch<4, float>(q, v, w, out_m, out_i, B, N, D, s);
-  if (topj == 2 && dtype == 0) return (int)launch<2, __nv_bfloat16>(q, v, w, out_m, out_i, B, N, D, s);
-  if (topj == 2 && dtype == 1) return (int)launch<2, float>(q, v, w, out_m, out_i, B, N, D, s);
+  using BF = __nv_bfloat16;
+  if (topj == 4 && dtype == 0) return (int)launch<4, BF, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
+  if (topj == 4 && dtype == 1) return (int)launch<4, float, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
+  if (topj == 2 && dtype == 0) return (int)launch<2, BF, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
+  if (topj == 2 && dtype == 1) return (int)launch<2, float, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The instances of B7-B10. variant: 0 = B9 (maxima, out_m [B, N/32]),
+// 1 = B10 (contiguous maxima, out_m [N/32, B]), 2 = B8 (selfold: out_m
+// [2, B, N/32], out_i [1, B, N/32]), 3 = B7 (B1's planes plus out_s
+// [2, B, N/4096]). Unused outputs may be null. dtype, layouts and the return
+// value as gvdb_segmax.
+extern "C" int gvdb_segmax_variant(int variant, int dtype, int device, const void* q,
+                                   const void* v, const float* w, float* out_m, int32_t* out_i,
+                                   float* out_s, int B, int N, int D, void* stream) {
+  if (!shape_ok(B, N, D) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using BF = __nv_bfloat16;
+  const bool bf = dtype == 0;
+  switch (variant) {
+    case 0:
+      return bf ? (int)launch<1, BF, PLAIN>(q, v, w, out_m, nullptr, nullptr, B, N, D, s)
+                : (int)launch<1, float, PLAIN>(q, v, w, out_m, nullptr, nullptr, B, N, D, s);
+    case 1:
+      return bf ? (int)launch<1, BF, CONTIG>(q, v, w, out_m, nullptr, nullptr, B, N, D, s)
+                : (int)launch<1, float, CONTIG>(q, v, w, out_m, nullptr, nullptr, B, N, D, s);
+    case 2:
+      return bf ? (int)launch<2, BF, SELFOLD>(q, v, w, out_m, out_i, nullptr, B, N, D, s)
+                : (int)launch<2, float, SELFOLD>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
+    case 3:
+      return bf ? (int)launch<4, BF, SUP>(q, v, w, out_m, out_i, out_s, B, N, D, s)
+                : (int)launch<4, float, SUP>(q, v, w, out_m, out_i, out_s, B, N, D, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* gvdb_cuda_error_string(int code) {

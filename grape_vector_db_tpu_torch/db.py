@@ -74,16 +74,23 @@ def build_index(config: VectorDbConfig, device: str | torch.device = "cuda") -> 
     factory passes. Ported kinds: ``"flat"``, ``"binary"``, ``"int8"``,
     ``"pq"``, ``"ivf"``, ``"ivf_int8"``, ``"ivf_int4"``, ``"ivf_pq"``,
     ``"ivf_int8_proj"``, ``"ivf_int4_proj"`` and ``"graph"``; the
-    ``sharded_*`` kinds and ``auto_shard`` raise."""
+    ``sharded_*`` kinds raise. ``auto_shard`` upgrades to a sharded kind
+    only where there is more than one local device, as in the reference:
+    on the CPU or on a host with one GPU it builds the kind as asked, and
+    on a host with more GPUs it raises until the sharded kinds are
+    ported."""
     kind = config.index.kind
     if config.device.auto_shard and kind in ("flat", "ivf", "ivf_int8", "ivf_int4"):
-        raise InvalidArgumentError(
-            "auto_shard is not ported to the PyTorch package yet: the sharded "
-            "kinds wait for ROADMAP A.14 (parallel/mesh.py on torch.distributed)")
+        if torch.device(device).type == "cuda" and torch.cuda.device_count() > 1:
+            raise InvalidArgumentError(
+                f"auto_shard on a host with {torch.cuda.device_count()} GPUs would "
+                f"build sharded_{kind}, which is not ported to the PyTorch package "
+                "yet: the sharded kinds wait for ROADMAP A.8 (parallel/mesh.py on "
+                "torch.distributed)")
     if kind.startswith("sharded_"):
         raise InvalidArgumentError(
             f"index kind {kind!r} is not ported to the PyTorch package yet: the "
-            "sharded kinds wait for ROADMAP A.14 (parallel/mesh.py on torch.distributed)")
+            "sharded kinds wait for ROADMAP A.8 (parallel/mesh.py on torch.distributed)")
     common = dict(
         dimension=config.vector_dimension,
         metric=config.distance,

@@ -12,7 +12,7 @@ external ``VectorIndex`` contract speaks full-dim vectors; ``get_vector`` /
 The projection fits on the first batch (or ``train()``); ``optimize()``
 refits it with the centroids on the whole corpus. A retained-energy fraction
 below ``ENERGY_WARN`` warns; below ``min_energy`` the fit refuses. The
-sharded classes wait for the sharded kinds (ROADMAP A.14).
+sharded classes wait for the sharded kinds (ROADMAP A.8).
 """
 
 from __future__ import annotations

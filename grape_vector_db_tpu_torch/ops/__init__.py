@@ -12,5 +12,7 @@ from grape_vector_db_tpu_torch.ops.distance import (
     score_block,
     scored_topk,
 )
+from grape_vector_db_tpu_torch.ops.segmax import segmax2_topk, segmax4_topk, segmax_topk
 
-__all__ = ["l2_normalize", "prepare_queries", "score_block", "scored_topk"]
+__all__ = ["l2_normalize", "prepare_queries", "score_block", "scored_topk",
+           "segmax_topk", "segmax4_topk", "segmax2_topk"]

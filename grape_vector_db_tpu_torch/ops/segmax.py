@@ -1,31 +1,42 @@
 """Segment top-k kernels for exact large-corpus search, and their phase 2.
 
-PyTorch counterpart of ``grape_vector_db_tpu/ops/segmax_pallas.py``'s main
-path. Phase 1 scores the whole corpus against the query batch and keeps, for
-every 32-row segment, only its top few values and the member index of the
-top ranks; the ``[B, N]`` score plane never leaves the kernel. Phase 2 picks
-candidate rows from those planes and rescores a handful of segments exactly.
+PyTorch counterpart of ``grape_vector_db_tpu/ops/segmax_pallas.py``. Phase 1
+scores the whole corpus against the query batch and keeps, for every 32-row
+segment, only its top few values and the member index of the top ranks; the
+``[B, N]`` score plane never leaves the kernel. Phase 2 picks candidate rows
+from those planes and rescores a handful of segments exactly.
 
 Segments are strided and block-major, as in the reference: segment
 ``g = blk * 128 + j`` holds rows ``blk * 4096 + j + 128 * m`` for m < 32, so
 the planes compare one to one with the Pallas kernels' interpret-mode output.
+The contiguous layout (``segmax_scores_contig``) has segment g = rows
+``32 * g .. 32 * g + 31`` instead.
 
-Phase 1 has two implementations of one contract:
+Phase 1 has two implementations of each contract: the hand-written CUDA
+kernels of one template in ``csrc/segmax.cu``, built with ``nvcc`` at first
+use into ``grape_vector_db_tpu_torch/_build/`` and called through a plain C
+interface, and the plain PyTorch versions (``*_ref``). Wrapper, the TPU
+kernel it replaces, ``LAUNCHES`` key:
 
-- the hand-written CUDA kernels in ``csrc/segmax.cu`` (``TOPJ`` = 4 replaces
-  ``_segmax4_kernel``, ``TOPJ`` = 2 replaces ``_segmax2_kernel``), built with
-  ``nvcc`` at first use into ``grape_vector_db_tpu_torch/_build/`` and called
-  through a plain C interface;
-- the plain PyTorch versions ``segmax4_scores_ref`` / ``segmax2_scores_ref``.
+- ``segmax4_scores``: B1 ``_segmax4_kernel``, ``segmax4``;
+- ``segmax2_scores``: B2 ``_segmax2_kernel``, ``segmax2``;
+- ``segmax2_scores(impl="selfold")``: B8 ``_segmax2_kernel_selfold``,
+  ``segmax2_selfold``;
+- ``segmax4_sup_scores``: B7 ``_segmax4_sup_kernel``, ``segmax4_sup``;
+- ``segmax_scores``: B9 ``_segmax_kernel``, ``segmax``;
+- ``segmax_scores_contig``: B10 ``_segmax_kernel_contig``, ``segmax_contig``.
 
-``segmax4_scores`` / ``segmax2_scores`` take the plain version only for
-tensors on the CPU; for a CUDA tensor they launch the kernel or raise. Each
-launch adds one to ``LAUNCHES``.
+A wrapper takes the plain version only for tensors on the CPU; for a CUDA
+tensor it launches the kernel or raises. Each launch adds one to
+``LAUNCHES``. The entry points ``segmax_topk``, ``segmax4_topk`` and
+``segmax2_topk`` run phase 1 and phase 2; ``ops/distance.scored_topk``
+routes only to B1 and B2, as the reference does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -35,8 +46,10 @@ from grape_vector_db_tpu_torch.ops.distance import f32_dots, prepare_queries
 
 __all__ = ["SEG", "CB", "LAUNCHES", "reset_launch_counts", "build_kernels",
            "make_weight_plane", "segmax4_scores", "segmax4_scores_ref",
-           "segmax2_scores", "segmax2_scores_ref", "segmax4_topk",
-           "segmax2_topk"]
+           "segmax2_scores", "segmax2_scores_ref", "segmax_scores",
+           "segmax_scores_ref", "segmax_scores_contig", "segmax_scores_contig_ref",
+           "segmax4_sup_scores", "segmax4_sup_scores_ref", "segmax_topk",
+           "segmax4_topk", "segmax2_topk"]
 
 SEG = 32          # rows per segment
 CB = 4096         # rows per corpus block
@@ -45,7 +58,8 @@ SPB = CB // SEG   # segments per corpus block (128)
 NEG_INF = float("-inf")
 
 #: Kernel launches per wrapper since the last reset (CUDA tensors only).
-LAUNCHES: Dict[str, int] = {"segmax4": 0, "segmax2": 0}
+LAUNCHES: Dict[str, int] = {"segmax4": 0, "segmax2": 0, "segmax": 0, "segmax_contig": 0,
+                            "segmax2_selfold": 0, "segmax4_sup": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,6 +78,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gvdb_segmax.argtypes = (
         [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
+    lib.gvdb_segmax_variant.restype = ctypes.c_int
+    lib.gvdb_segmax_variant.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
 
 
 def build_kernels() -> ctypes.CDLL:
@@ -73,11 +91,19 @@ def build_kernels() -> ctypes.CDLL:
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
+# (top-j, variant) -> (LAUNCHES key, variant code of gvdb_segmax_variant;
+# None: gvdb_segmax)
+_INSTANCES = {(4, "plain"): ("segmax4", None), (2, "plain"): ("segmax2", None),
+              (1, "plain"): ("segmax", 0), (1, "contig"): ("segmax_contig", 1),
+              (2, "selfold"): ("segmax2_selfold", 2), (4, "sup"): ("segmax4_sup", 3)}
 
-def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor,
-            w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the TOPJ kernel: ([topj, B, N/SEG] f32, [topj-1, B, N/SEG] int32)."""
-    name = f"segmax{topj}"
+
+def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
+            variant: str = "plain") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run one kernel instance: values [topj, B, N/SEG] f32 (contig:
+    [N/SEG, B]), member indices [topj-1, B, N/SEG] int32, and block maxima
+    [2, B, N/CB] f32 (sup; empty otherwise)."""
+    name, code = _INSTANCES[(topj, variant)]
     dev = vectors.device
     if dev.type != "cuda" or q.device != dev or w.device != dev:
         raise ValueError(f"{name}: q, vectors and w must lie on one CUDA device")
@@ -100,17 +126,23 @@ def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: q and vectors must be 16-byte aligned")
     lib = build_kernels()
-    vals = torch.empty((topj, b, n // SEG), dtype=torch.float32, device=dev)
+    shape = (n // SEG, b) if variant == "contig" else (topj, b, n // SEG)
+    vals = torch.empty(shape, dtype=torch.float32, device=dev)
     idxs = torch.empty((topj - 1, b, n // SEG), dtype=torch.int32, device=dev)
+    sup = torch.empty((2, b, n // CB) if variant == "sup" else (0,),
+                      dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gvdb_segmax(topj, _DTYPE_CODE[vectors.dtype], dev.index or 0,
-                         qc.data_ptr(), vectors.data_ptr(), wc.data_ptr(),
-                         vals.data_ptr(), idxs.data_ptr(), b, n, d, stream)
+    args = (_DTYPE_CODE[vectors.dtype], dev.index or 0, qc.data_ptr(), vectors.data_ptr(),
+            wc.data_ptr(), vals.data_ptr(), idxs.data_ptr())
+    if code is None:
+        rc = lib.gvdb_segmax(topj, *args, b, n, d, stream)
+    else:
+        rc = lib.gvdb_segmax_variant(code, *args, sup.data_ptr(), b, n, d, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.gvdb_cuda_error_string(rc).decode()} ({rc})")
     LAUNCHES[name] += 1
-    return vals, idxs
+    return vals, idxs, sup
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -126,21 +158,42 @@ def make_weight_plane(norms: torch.Tensor, valid: torch.Tensor,
     return torch.where(valid, w, 0.0)
 
 
-def _sorted_segments(q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
-                     topj: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scores in f32, viewed as [B, blocks, member, segment]; members sorted
-    by (score descending, member ascending) — a stable descending sort."""
-    b = q.shape[0]
+def _scores(q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[B, N] f32 weighted scores, -inf where w == 0 (the kernels' contract)."""
     n = vectors.shape[0]
     if n % CB:
         raise ValueError(f"N={n} must be a multiple of {CB}")
     s = f32_dots(q, vectors)
-    s = torch.where(w[None, :] == 0, NEG_INF, s * w[None, :])
+    return torch.where(w[None, :] == 0, NEG_INF, s * w[None, :])
+
+
+def _bitrev5(x: int) -> int:
+    return int(f"{x:05b}"[::-1], 2)
+
+
+#: the members in the order the selfold rule prefers them on a tie: position
+#: p holds the member whose 5-bit bit-reversed index is p
+_SELFOLD_ORDER = [_bitrev5(p) for p in range(SEG)]
+
+
+def _sorted_segments(q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
+                     topj: int, order: Optional[list] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scores in f32, viewed as [B, blocks, member, segment]; members sorted
+    by score descending, ties in ``order`` (a list of the members; default
+    ascending) — a stable descending sort over the members so permuted."""
+    b = q.shape[0]
+    n = vectors.shape[0]
+    s = _scores(q, vectors, w)
     s = s.view(b, n // CB, SEG, SPB).transpose(2, 3)        # member axis last
-    vals, order = torch.sort(s, dim=-1, descending=True, stable=True)
+    if order is not None:
+        s = s[..., order]
+    vals, pos = torch.sort(s, dim=-1, descending=True, stable=True)
+    pos = pos[..., :topj - 1]
+    if order is not None:
+        pos = torch.tensor(order, device=pos.device)[pos]
     vals = vals[..., :topj].reshape(b, n // SEG, topj)
-    order = order[..., :topj - 1].reshape(b, n // SEG, topj - 1)
-    return vals, order.to(torch.int32)
+    return vals, pos.reshape(b, n // SEG, topj - 1).to(torch.int32)
 
 
 def segmax4_scores_ref(q: torch.Tensor, vectors: torch.Tensor,
@@ -152,12 +205,55 @@ def segmax4_scores_ref(q: torch.Tensor, vectors: torch.Tensor,
             + tuple(order[..., t].contiguous() for t in range(3)))
 
 
-def segmax2_scores_ref(q: torch.Tensor, vectors: torch.Tensor,
-                       w: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Plain version of the top-2 kernel: (m1, i1, m2), each [B, N/SEG]."""
-    vals, order = _sorted_segments(q, vectors, w, 2)
+def segmax2_scores_ref(q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
+                       impl: str = "eqfold") -> Tuple[torch.Tensor, ...]:
+    """Plain version of the top-2 kernels: (m1, i1, m2), each [B, N/SEG].
+    ``impl="eqfold"`` (B2): among tied maxima i1 is the smallest member;
+    ``"selfold"`` (B8): the member with the smallest 5-bit bit-reversed
+    index, the rule of the reference's fold, which keeps the lower half at
+    each of its five halvings. The values are the same."""
+    vals, order = _sorted_segments(q, vectors, w, 2, order=_impl_order(impl))
     return (vals[..., 0].contiguous(), order[..., 0].contiguous(),
             vals[..., 1].contiguous())
+
+
+def _impl_order(impl: str) -> Optional[list]:
+    if impl not in ("eqfold", "selfold"):
+        raise ValueError(f"unknown segmax2 impl {impl!r} (eqfold or selfold)")
+    return _SELFOLD_ORDER if impl == "selfold" else None
+
+
+def segmax_scores_ref(q: torch.Tensor, vectors: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """Plain version of B9: [B, N/SEG] f32 strided segment maxima."""
+    b, n = q.shape[0], vectors.shape[0]
+    s = _scores(q, vectors, w).view(b, n // CB, SEG, SPB)
+    return s.amax(dim=2).reshape(b, n // SEG)
+
+
+def segmax_scores_contig_ref(q: torch.Tensor, vectors: torch.Tensor,
+                             w: torch.Tensor) -> torch.Tensor:
+    """Plain version of B10: [N/SEG, B] f32 maxima over contiguous 32-row
+    segments (segment g = rows 32 g .. 32 g + 31), transposed as the
+    reference's output is."""
+    b, n = q.shape[0], vectors.shape[0]
+    s = _scores(q, vectors, w).view(b, n // SEG, SEG)
+    return s.amax(dim=2).T.contiguous()
+
+
+def _block_maxima(plane: torch.Tensor) -> torch.Tensor:
+    """[B, N/SEG] segment plane -> [B, N/CB] maxima over each block's segments."""
+    b = plane.shape[0]
+    return plane.view(b, -1, SPB).amax(dim=2)
+
+
+def segmax4_sup_scores_ref(q: torch.Tensor, vectors: torch.Tensor,
+                           w: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain version of B7: B1's seven planes, then s1 and s2 [B, N/CB],
+    the maxima of m1 and m2 over each block's 128 segments (-inf for a
+    block with no valid row)."""
+    planes = segmax4_scores_ref(q, vectors, w)
+    return planes + (_block_maxima(planes[0]), _block_maxima(planes[1]))
 
 
 def segmax4_scores(q: torch.Tensor, vectors: torch.Tensor,
@@ -166,17 +262,44 @@ def segmax4_scores(q: torch.Tensor, vectors: torch.Tensor,
     (prepared), vectors [N, D] and w [N] f32. CUDA tensors run the kernel."""
     if vectors.device.type == "cpu":
         return segmax4_scores_ref(q, vectors, w)
-    vals, idxs = _launch(4, q, vectors, w)
+    vals, idxs, _ = _launch(4, q, vectors, w)
     return tuple(vals.unbind(0)) + tuple(idxs.unbind(0))
 
 
-def segmax2_scores(q: torch.Tensor, vectors: torch.Tensor,
-                   w: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """(m1, i1, m2), [B, N/SEG] each. CUDA tensors run the kernel."""
+def segmax2_scores(q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
+                   impl: str = "eqfold") -> Tuple[torch.Tensor, ...]:
+    """(m1, i1, m2), [B, N/SEG] each; ``impl`` picks the tie rule of i1
+    (``segmax2_scores_ref``). CUDA tensors run B2 (eqfold) or B8 (selfold)."""
+    _impl_order(impl)
     if vectors.device.type == "cpu":
-        return segmax2_scores_ref(q, vectors, w)
-    vals, idxs = _launch(2, q, vectors, w)
+        return segmax2_scores_ref(q, vectors, w, impl=impl)
+    vals, idxs, _ = _launch(2, q, vectors, w, "selfold" if impl == "selfold" else "plain")
     return vals[0], idxs[0], vals[1]
+
+
+def segmax_scores(q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[B, N/SEG] strided segment maxima. CUDA tensors run B9."""
+    if vectors.device.type == "cpu":
+        return segmax_scores_ref(q, vectors, w)
+    return _launch(1, q, vectors, w)[0][0]
+
+
+def segmax_scores_contig(q: torch.Tensor, vectors: torch.Tensor,
+                         w: torch.Tensor) -> torch.Tensor:
+    """[N/SEG, B] contiguous segment maxima. CUDA tensors run B10."""
+    if vectors.device.type == "cpu":
+        return segmax_scores_contig_ref(q, vectors, w)
+    return _launch(1, q, vectors, w, "contig")[0]
+
+
+def segmax4_sup_scores(q: torch.Tensor, vectors: torch.Tensor,
+                       w: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(m1, m2, m3, m4, i1, i2, i3, s1, s2): B1's planes and the block
+    maxima of m1 and m2 [B, N/CB]. CUDA tensors run B7."""
+    if vectors.device.type == "cpu":
+        return segmax4_sup_scores_ref(q, vectors, w)
+    vals, idxs, sup = _launch(4, q, vectors, w, "sup")
+    return tuple(vals.unbind(0)) + tuple(idxs.unbind(0)) + tuple(sup.unbind(0))
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -210,11 +333,16 @@ def _segment_rows(seg: torch.Tensor) -> torch.Tensor:
 
 
 def _rescore(q: torch.Tensor, vectors: torch.Tensor, norms: torch.Tensor,
-             valid: torch.Tensor, rows: torch.Tensor, metric: str) -> torch.Tensor:
+             valid: torch.Tensor, rows: torch.Tensor, metric: str,
+             cvecs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact scores of [B, C] gathered rows, in phase 1's arithmetic: f32
-    products of the stored values times the masked weight. The gathered rows
-    are few, so both operands are upcast to f32 (bf16 products are exact)."""
-    cvecs = vectors[rows].to(torch.float32)                 # [B, C, D]
+    products of the stored values times the masked weight (multiplied,
+    never divided). ``cvecs`` may hold the rows already gathered ([B, C, D]).
+    The gathered rows are few, so both operands are upcast to f32 (bf16
+    products are exact)."""
+    if cvecs is None:
+        cvecs = vectors[rows]
+    cvecs = cvecs.to(torch.float32)                         # [B, C, D]
     qc = q.to(vectors.dtype).to(torch.float32)
     dots = torch.bmm(cvecs, qc[:, :, None])[:, :, 0]        # [B, C]
     w = make_weight_plane(norms[rows], valid[rows], metric)
@@ -228,6 +356,97 @@ def _clamp(v: torch.Tensor, metric: str) -> torch.Tensor:
     return torch.clamp(v, max=1.0) if metric == "cosine" else v
 
 
+_SELECTS = ("auto", "iterative", "twolevel")
+
+
+def _check_select(select: str, allowed=_SELECTS) -> None:
+    """The reference's ``select`` picks among its TPU selection engines
+    (iterative max-and-mask, supersegment two-level, verified approx). The
+    port accepts the same values and selects with ``torch.topk``, which is
+    exact, for every one of them: a deliberate difference, as for
+    ``search_mode="approx"``."""
+    if select not in allowed:
+        raise ValueError(f"unknown select {select!r} (one of {', '.join(allowed)})")
+
+
+def _topk(plane: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return torch.topk(plane, r, dim=1)
+
+
+def _twolevel_topk_pre(plane: torch.Tensor, kk: int,
+                       sup: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-kk over [B, W] ``plane`` from its block maxima ``sup``
+    [B, ns] (reference ``_twolevel_topk_pre`` / ``_twolevel_from_sup``): the
+    top-kk blocks on ``sup``, then the top-kk over those blocks' contiguous
+    children. A top-kk value's block bounds it from above, so kk better
+    blocks would hold kk better values; ties at the k-th value are
+    interchangeable. Falls back to the full-plane selection when
+    ns < kk."""
+    b, w = plane.shape
+    ns = sup.shape[1]
+    if ns < kk or w % ns:
+        return _topk(plane, kk)
+    fan = w // ns
+    _, blks = torch.topk(sup, kk, dim=1)                    # [B, kk]
+    cvals = torch.gather(plane.view(b, ns, fan), 1,
+                         blks[:, :, None].expand(b, kk, fan))
+    # a repeated block would enter twice; torch.topk picks distinct ones, so
+    # this is the reference's guard kept for its contract
+    cvals = torch.where(_dup_pick_mask(blks)[:, :, None], NEG_INF, cvals)
+    child = (blks[:, :, None] * fan
+             + torch.arange(fan, device=plane.device)[None, None, :]).reshape(b, kk * fan)
+    tv, tp = torch.topk(cvals.reshape(b, kk * fan), kk, dim=1)
+    return tv, torch.gather(child, 1, tp)
+
+
+def segmax_topk(
+    queries: torch.Tensor,   # [B, D] f32 raw
+    vectors: torch.Tensor,   # [N, D] storage dtype, N % 4096 == 0
+    norms: torch.Tensor,     # [N] f32
+    valid: torch.Tensor,     # [N] bool
+    k: int,
+    metric: str = "cosine",
+    mask: Optional[torch.Tensor] = None,  # [N] bool filter (True = allowed)
+    layout: str = "strided",
+    select: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k via segment maxima (reference ``pallas_segmax_topk``):
+    phase 1 keeps each 32-row segment's maximum (B9 for ``layout=
+    "strided"``, B10 for ``"contig"``), phase 2 rescores every member of
+    the top-k segments. If a true top-k row lay outside them, k segments
+    would each hold a larger row. Contiguous segments are gathered as one
+    [32, D] slice each. ``select`` takes the reference's values
+    ("auto", "iterative", "verified", "twolevel"); every one selects
+    exactly with ``torch.topk``. Returns min(k, 32 * min(k, N/32)) columns."""
+    if layout not in ("strided", "contig"):
+        raise ValueError(f"unknown layout {layout!r} (strided or contig)")
+    _check_select(select, _SELECTS + ("verified",))
+    n, d = vectors.shape
+    b = queries.shape[0]
+    if mask is not None:
+        valid = torch.logical_and(valid, mask)
+    q = prepare_queries(queries, metric)
+    w = make_weight_plane(norms, valid, metric)
+    if layout == "contig":
+        segmax = segmax_scores_contig(q, vectors, w).T      # [B, N/SEG]
+    else:
+        segmax = segmax_scores(q, vectors, w)
+    kk = min(k, n // SEG)
+    _, seg = _topk(segmax, kk)
+    if layout == "contig":
+        rows = (seg[:, :, None] * SEG
+                + torch.arange(SEG, device=seg.device)[None, None, :]).reshape(b, kk * SEG)
+        cvecs = vectors.view(n // SEG, SEG, d)[seg].reshape(b, kk * SEG, d)
+    else:
+        rows = _segment_rows(seg)
+        cvecs = None
+    rs = _rescore(q, vectors, norms, valid, rows, metric, cvecs)
+    rs = torch.where(torch.repeat_interleave(_dup_pick_mask(seg), SEG, dim=1),
+                     NEG_INF, rs)
+    fvals, fpos = torch.topk(rs, min(k, rs.shape[1]), dim=1)
+    return fvals, torch.gather(rows, 1, fpos)
+
+
 def segmax4_topk(
     queries: torch.Tensor,   # [B, D] f32 raw
     vectors: torch.Tensor,   # [N, D] storage dtype
@@ -236,11 +455,18 @@ def segmax4_topk(
     k: int,
     metric: str = "cosine",
     mask: Optional[torch.Tensor] = None,  # [N] bool filter (True = allowed)
+    select: str = "auto",
+    impl: str = "plain",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k via the top-4-per-segment kernel (reference
     ``pallas_segmax4_topk``): ranks 1..3 of every segment are known
     candidates (value + member index from the kernel, no gather), and only
     the top-floor(k/4) segments by fourth value are fully rescored.
+
+    ``impl="plain"`` runs B1; ``"sup"`` runs B7, which also emits the block
+    maxima of the m1 and m2 planes, and the two full-plane selections start
+    from them (``_twolevel_topk_pre``). The result is the same. ``select``
+    as in ``segmax_topk``.
 
     Exactness: let tau be the true k-th score. A top-k row at rank j within
     its segment s has m_j(s) >= tau, and s holds j rows >= tau, so at most
@@ -249,16 +475,25 @@ def segmax4_topk(
     full: m2 >= m3 >= m4, so the rank-3 pool and the rescore set are found
     within the m2-top-floor(k/2) segments. Boundary ties are interchangeable
     by value."""
+    if impl not in ("plain", "sup"):
+        raise ValueError(f"unknown segmax4 impl {impl!r} (plain or sup)")
+    _check_select(select)
     n, d = vectors.shape
     if mask is not None:
         valid = torch.logical_and(valid, mask)
     q = prepare_queries(queries, metric)
     w = make_weight_plane(norms, valid, metric)
-    m1, m2, m3, m4, i1, i2, i3 = segmax4_scores(q, vectors, w)
+    sel_m1 = sel_m2 = _topk
+    if impl == "sup":
+        m1, m2, m3, m4, i1, i2, i3, s1, s2 = segmax4_sup_scores(q, vectors, w)
+        sel_m1 = functools.partial(_twolevel_topk_pre, sup=s1)
+        sel_m2 = functools.partial(_twolevel_topk_pre, sup=s2)
+    else:
+        m1, m2, m3, m4, i1, i2, i3 = segmax4_scores(q, vectors, w)
     num_seg = n // SEG
     kk = min(k, num_seg)
 
-    v1, seg1 = torch.topk(m1, kk, dim=1)
+    v1, seg1 = sel_m1(m1, kk)
     pools_v = [_clamp(v1, metric)]
     pools_rows = [_member_rows(i1, seg1)]
     pools_seg = [seg1]
@@ -266,7 +501,7 @@ def segmax4_topk(
     r3 = min(kk // 3, r2)
     r4 = min(kk // 4, r2)
     if r2:
-        v2, seg2 = torch.topk(m2, r2, dim=1)
+        v2, seg2 = sel_m2(m2, r2)
         pools_v.append(_clamp(v2, metric))
         pools_rows.append(_member_rows(i2, seg2))
         pools_seg.append(seg2)
@@ -311,6 +546,8 @@ def segmax2_topk(
     k: int,
     metric: str = "cosine",
     mask: Optional[torch.Tensor] = None,  # [N] bool filter (True = allowed)
+    select: str = "auto",
+    impl: str = "eqfold",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k via the top-2-per-segment kernel (reference
     ``pallas_segmax2_topk``): candidates are the top-k segment argmaxes
@@ -318,13 +555,15 @@ def segmax2_topk(
     top-floor(k/2) segments by second value. A top-k row that is not its
     segment's argmax has m2(s) >= tau, and more than floor(k/2) such
     segments would hold more than k rows >= tau. For k == 1 no row is
-    gathered at all."""
+    gathered at all. ``impl="eqfold"`` runs B2, ``"selfold"`` B8 (another
+    member on ties, the same values); ``select`` as in ``segmax_topk``."""
+    _check_select(select)
     n, d = vectors.shape
     if mask is not None:
         valid = torch.logical_and(valid, mask)
     q = prepare_queries(queries, metric)
     w = make_weight_plane(norms, valid, metric)
-    m1, i1, m2 = segmax2_scores(q, vectors, w)
+    m1, i1, m2 = segmax2_scores(q, vectors, w, impl)
     num_seg = n // SEG
     kk = min(k, num_seg)
     v1, seg1 = torch.topk(m1, kk, dim=1)             # candidate argmax rows

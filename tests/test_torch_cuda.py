@@ -24,7 +24,7 @@ from grape_vector_db_tpu_torch.ops import hamming as tham
 from grape_vector_db_tpu_torch.ops import ivf as tivf
 from grape_vector_db_tpu_torch.ops import segmax as tseg
 from grape_vector_db_tpu_torch.ops.int4 import quantize_int4
-from torch_parity import assert_hits_match
+from torch_parity import assert_hits_match, assert_topk_match, integer_case
 
 
 @pytest.fixture
@@ -34,15 +34,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _integer_case(n=8192, d=128, b=40, seed=0):
-    g = np.random.default_rng(seed)
-    v = g.integers(-2, 3, (n, d)).astype(np.float32)
-    for m in (3, 7, 20):                      # duplicates inside one segment
-        v[4096 + 5 + 128 * m] = v[77]
-    q = g.integers(-2, 3, (b, d)).astype(np.float32)
-    w = (g.random(n) > 0.05).astype(np.float32)
-    w[[9 + 128 * m for m in range(32)]] = 0.0  # one all-invalid segment
-    return torch.from_numpy(v), torch.from_numpy(q), torch.from_numpy(w)
+_integer_case = integer_case
 
 
 @pytest.mark.cuda
@@ -59,6 +51,89 @@ def test_segmax_kernel_matches_plain(cuda, topj, dtype):
     assert tseg.LAUNCHES[f"segmax{topj}"] == before + 1
     for a, b in zip(got, plain(q, v, w)):
         assert torch.equal(a.float(), b.float())
+
+
+# wrapper, plain version, LAUNCHES key of B9, B10, B7 and B8
+VARIANTS = {
+    "segmax": (tseg.segmax_scores, tseg.segmax_scores_ref),
+    "segmax_contig": (tseg.segmax_scores_contig, tseg.segmax_scores_contig_ref),
+    "segmax4_sup": (tseg.segmax4_sup_scores, tseg.segmax4_sup_scores_ref),
+    "segmax2_selfold": (lambda q, v, w: tseg.segmax2_scores(q, v, w, impl="selfold"),
+                        lambda q, v, w: tseg.segmax2_scores_ref(q, v, w, impl="selfold")),
+}
+
+
+def _planes(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segmax_variant_kernel_matches_plain(cuda, variant, dtype):
+    """B7-B10 on the integer case: every plane equal to the plain version's,
+    bit for bit (B8's member indices and B7's block maxima included), one
+    launch each; B8's i1 differs from B2's on the ties."""
+    v, q, w = _integer_case()
+    v, q, w = v.to(cuda).to(getattr(torch, dtype)), q.to(cuda), w.to(cuda)
+    kern, plain = VARIANTS[variant]
+    before = tseg.LAUNCHES[variant]
+    got = _planes(kern(q, v, w))
+    torch.cuda.synchronize()
+    assert tseg.LAUNCHES[variant] == before + 1
+    want = _planes(plain(q, v, w))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a.float(), b.float())
+    if variant == "segmax2_selfold":
+        assert (got[1] != tseg.segmax2_scores(q, v, w)[1]).any()
+
+
+ENTRY_POINTS = {
+    "strided": (tseg.segmax_topk, {}, "segmax"),
+    "contig": (tseg.segmax_topk, {"layout": "contig"}, "segmax_contig"),
+    "segmax4_sup": (tseg.segmax4_topk, {"impl": "sup"}, "segmax4_sup"),
+    "segmax2_selfold": (tseg.segmax2_topk, {"impl": "selfold"}, "segmax2_selfold"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", list(ENTRY_POINTS))
+@pytest.mark.parametrize("k", [3, 10])
+def test_segmax_entry_points_on_cuda_match_cpu(cuda, engine, k):
+    """Each entry point on the card (its kernel, one launch) and on the CPU
+    (plain versions) returns the same top-k, with a mask; values within
+    1e-4 (bf16 rows, f32 sums in different orders)."""
+    fn, kw, key = ENTRY_POINTS[engine]
+    g = np.random.default_rng(2)
+    n, d, b = 12_288, 128, 40
+    v = torch.from_numpy(g.standard_normal((n, d)).astype(np.float32)).to(torch.bfloat16)
+    q = torch.from_numpy(g.standard_normal((b, d)).astype(np.float32))
+    norms = v.float().norm(dim=1)
+    valid = torch.from_numpy(g.random(n) > 0.05)
+    mask = torch.from_numpy(g.random(n) > 0.3)
+    tseg.reset_launch_counts()
+    got = fn(q.to(cuda), v.to(cuda), norms.to(cuda), valid.to(cuda), k=k,
+             mask=mask.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert tseg.LAUNCHES[key] == 1 and sum(tseg.LAUNCHES.values()) == 1
+    want = fn(q, v, norms, valid, k=k, mask=mask, **kw)
+    assert_topk_match(got[0].cpu(), got[1].cpu(), *want, tol=1e-4)
+
+
+@pytest.mark.cuda
+def test_auto_shard_on_one_gpu_builds_the_unsharded_kind(cuda):
+    """ROADMAP C.1: with one GPU, auto_shard builds the kind as asked."""
+    if torch.cuda.device_count() > 1:
+        pytest.skip("needs a host with exactly one GPU")
+    from grape_vector_db_tpu_torch.config import VectorDbConfig
+    from grape_vector_db_tpu_torch.db import build_index
+    from grape_vector_db_tpu_torch.index import FlatDeviceIndex
+
+    cfg = VectorDbConfig(vector_dimension=128)
+    cfg.device.auto_shard = True
+    idx = build_index(cfg, device=cuda)
+    assert type(idx) is FlatDeviceIndex and idx.device.type == "cuda"
 
 
 def _probe_case(fmt, n_lists=8, cap=128, d=128, b=24, p=6, seed=0):

@@ -136,11 +136,59 @@ def test_text_and_hybrid_search_match_jax(rng):
 
 @pytest.mark.parametrize("kind", ["sharded_flat", "sharded_ivf", "sharded_ivf_int8",
                                   "sharded_ivf_int4", "auto_shard"])
-def test_unported_index_kinds_raise(kind):
+def test_unported_index_kinds_raise(kind, monkeypatch):
+    """The sharded kinds raise, and so does ``auto_shard`` where it would
+    build one: on a host with more than one GPU (two are faked here; the
+    check comes before anything touches a card)."""
     cfg = VectorDbConfig(vector_dimension=D)
+    device = "cpu"
     if kind == "auto_shard":
         cfg.device.auto_shard = True
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        device = "cuda"
     else:
         cfg.index.kind = kind
     with pytest.raises(InvalidArgumentError, match="ROADMAP"):
-        build_index(cfg, device="cpu")
+        build_index(cfg, device=device)
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf", "ivf_int8", "ivf_int4"])
+def test_auto_shard_on_one_device_builds_the_unsharded_kind(rng, kind):
+    """As in the reference (db.py build_index), ``auto_shard`` upgrades to a
+    sharded kind only where there is more than one local device; on the CPU
+    (and on one GPU) the port builds the kind as asked. The JAX side is built
+    without ``auto_shard``: its tests run on 8 virtual CPU devices, where it
+    would shard. IVF kinds probe every list (nprobe = nlist), so the
+    partition, whose k-means start differs across engines, does not decide
+    the answer. Tolerance 1e-4 for flat, 3e-3 for the IVF kinds (as
+    tests/test_torch_ivf.py)."""
+    from grape_vector_db_tpu_torch.index import (FlatDeviceIndex, Int4IvfDeviceIndex,
+                                                 Int8IvfDeviceIndex, IvfDeviceIndex)
+
+    cls = {"flat": FlatDeviceIndex, "ivf": IvfDeviceIndex, "ivf_int8": Int8IvfDeviceIndex,
+           "ivf_int4": Int4IvfDeviceIndex}[kind]
+    x = rng.standard_normal((1200, D)).astype(np.float32)
+    queries = np.concatenate([x[:4] + 0.05 * rng.standard_normal((4, D)).astype(np.float32),
+                              rng.standard_normal((4, D)).astype(np.float32)])
+    dbs = []
+    for cfg_cls, db_cls, doc_cls, kw, shard in (
+            (JaxConfig, JaxDatabase, JaxDocument, {}, False),
+            (VectorDbConfig, VectorDatabase, Document, {"device": "cpu"}, True)):
+        cfg = cfg_cls(vector_dimension=D)
+        cfg.index.kind = kind
+        cfg.index.nlist = cfg.index.nprobe = 8
+        cfg.device.auto_shard = shard
+        db = db_cls(config=cfg, **kw)
+        db.batch_add_documents(_docs(doc_cls, x, 0)[:1000])
+        db.batch_add_documents(_docs(doc_cls, x, 1000))
+        dbs.append(db)
+    jdb, tdb = dbs
+    assert type(tdb.index) is cls and tdb.index.kind == kind
+    assert type(jdb.index).__name__ == cls.__name__
+    tol = TOL if kind == "flat" else 3e-3
+    got = tdb.vector_search_batch(queries, 10)
+    want = jdb.vector_search_batch(queries, 10)
+    assert_hits_match([_rows(r) for r in got], [_rows(r) for r in want], tol)
+    assert all(len(r) == 10 for r in got)
+    jdb.close()
+    tdb.close()

@@ -12,6 +12,7 @@ dimension, and f32 sums lose digits in proportion.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def to_np(x) -> np.ndarray:
@@ -124,3 +125,18 @@ def assert_two_stage_match(hits, ref_hits, tol: float, prescan_of=None,
             assert prescan_of is not None and abs(prescan_of(r, i) - boundary[r]) <= \
                 prescan_tol, (f"row {r}: id {i} (score {v}) differs away from the k-th "
                               f"score {kth} and from the prescan boundary: {row} vs {ref_row}")
+
+
+def integer_case(n=8192, d=128, b=40, seed=0):
+    """(v [n, d], q [b, d], w [n]) f32 CPU tensors for the segment kernels:
+    small integers, so every sum is exact in f32 and ties are everywhere;
+    three duplicates of one row inside one segment (block 1, column 5) and
+    one segment whose rows all have weight 0 (block 0, column 9)."""
+    g = np.random.default_rng(seed)
+    v = g.integers(-2, 3, (n, d)).astype(np.float32)
+    for m in (3, 7, 20):                      # duplicates inside one segment
+        v[4096 + 5 + 128 * m] = v[77]
+    q = g.integers(-2, 3, (b, d)).astype(np.float32)
+    w = (g.random(n) > 0.05).astype(np.float32)
+    w[[9 + 128 * m for m in range(32)]] = 0.0  # one all-invalid segment
+    return torch.from_numpy(v), torch.from_numpy(q), torch.from_numpy(w)
