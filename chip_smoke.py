@@ -15,7 +15,9 @@ the port's paths through ``VectorDatabase`` on the card:
   B=128): ``segmax_topk`` with both layouts (B9, B10), ``segmax4_topk(impl=
   "sup")`` (B7) and ``segmax2_topk(impl="selfold")`` (B8), at k = 10, k = 3
   and filtered, against the exact one-matmul oracle on the card, after each
-  of B7-B10 is held against its plain version;
+  of B7-B10 is held against its plain version (B9 and B10 in bf16 storage
+  run the TMA + wgmma kernel of ``csrc/segmax_max.cu``, in f32 storage the
+  ``csrc/segmax.cu`` template);
 - the IVF family at the repository's 1M IVF configuration (bench.py:483-506:
   1,048,576 x 768 clustered rows, 16,384 Gaussian centres + 0.25 noise,
   nlist 4096, nprobe 16): ``ivf`` runs B3, ``ivf_int8`` B4 and ``ivf_int4``
@@ -110,10 +112,11 @@ KERNELS = {
                 "grape_vector_db_tpu/ops/segmax_pallas.py:354"),
     "segmax2": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
                 "grape_vector_db_tpu/ops/segmax_pallas.py:124"),
-    # B9, B10, B7, B8: the segment-max entry points' kernels
-    "segmax": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
+    # B9, B10, B7, B8: the segment-max entry points' kernels; B9 and B10 in
+    # bf16 storage (the main path's) run the TMA + wgmma kernel
+    "segmax": ("grape_vector_db_tpu_torch/csrc/segmax_max.cu",
                "grape_vector_db_tpu/ops/segmax_pallas.py:53"),
-    "segmax_contig": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
+    "segmax_contig": ("grape_vector_db_tpu_torch/csrc/segmax_max.cu",
                       "grape_vector_db_tpu/ops/segmax_pallas.py:728"),
     "segmax4_sup": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
                     "grape_vector_db_tpu/ops/segmax_pallas.py:401"),
@@ -190,11 +193,14 @@ def ptxas_summary(build_log: str):
                     ("4", "3"): "segmax4_sup"}
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
+        mx = re.search(r"Compiling entry function '.*segmax_max_kernelILb(\d)E", line)
         m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)E(\w+?)Li(\d)EEEv", line)
         p = re.search(r"Compiling entry function '.*probe_kernelILi(\d)E+v", line)
         h = re.search(r"Compiling entry function '.*hamming_kernel", line)
         g = re.search(r"Compiling entry function '.*gather_dots_kernelILi(\d)ELb(\d)E", line)
-        if m:
+        if mx:
+            name = f"{'segmax_contig' if mx[1] == '1' else 'segmax'}<bf16, TMA + wgmma>"
+        elif m:
             name = f"{segmax_names[m[1], m[3]]}<{'bf16' if 'bfloat16' in m[2] else 'f32'}>"
         elif p:
             name = f"ivf_probe<{fmts[p[1]]}>"
@@ -206,7 +212,9 @@ def ptxas_summary(build_log: str):
             spill = line.strip()
         elif name and "Used" in line and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)[1]
-            out.append(f"{name}: {regs} registers, {spill}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {regs} registers, {smem[1] if smem else 0} bytes static "
+                       f"shared memory, {spill}")
             name = None
     return out
 
@@ -245,17 +253,19 @@ def setup():
     log(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    builds = (segmax.build_kernels, ivf.build_kernels, hamming.build_kernels,
-              gather.build_kernels)
+    builds = (segmax.build_kernels, segmax.build_max_kernel, ivf.build_kernels,
+              hamming.build_kernels, gather.build_kernels)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source
         for fut in [pool.submit(b) for b in builds]:
             fut.result()
     log(f"[setup] kernels built in {time.perf_counter() - t0:.2f} s (in parallel)")
-    for name in ("segmax", "ivf_probe", "hamming", "gather"):
+    for name in ("segmax", "segmax_max", "ivf_probe", "hamming", "gather"):
         info = _build.BUILD_INFO[name]
         log(f"[setup] {name}: {info['library']}, {info['seconds']:.2f} s")
         for entry in ptxas_summary(str(info["log"])):
             log(f"[setup] ptxas {entry}")
+    log(f"[setup] segmax_max: {segmax.build_max_kernel().gvdb_segmax_max_smem_bytes()} bytes "
+        "of dynamic shared memory a block, one block an SM")
     a = torch.ones(4, 8, device="cuda", dtype=torch.bfloat16)
     require(torch.mm(a, a.T, out_dtype=torch.float32).dtype == torch.float32,
             "torch.mm(bf16, bf16, out_dtype=float32) did not return float32")
@@ -468,7 +478,8 @@ def segmax_variants_phase():
         diff = (selfold(qi, vt, wi)[1] != segmax.segmax2_scores(qi, vt, wi)[1]).sum().item()
         require(diff > 0, "segmax2_selfold: i1 equals B2's everywhere on the tie case")
         log(f"[kernels] segmax, segmax_contig, segmax4_sup, segmax2_selfold {dtype} adversarial "
-            f"(B=40): every plane equal; selfold's i1 differs from B2's at {diff} ties")
+            f"(B=40; B9/B10 from csrc/{segmax._library(1, dtype)}.cu): every plane equal; "
+            f"selfold's i1 differs from B2's at {diff} ties")
 
     # the entry points: this phase's main path, each call one launch of its kernel
     rng = np.random.default_rng(SEED + 21)
@@ -531,29 +542,37 @@ def segmax_variants_phase():
 
     # the nearest library composition of B9 and B10: four calls, the [B, N]
     # score plane materialized
-    qc = q.to(torch.bfloat16)
-
-    def lib_strided():
-        s = torch.mm(qc, v.T, out_dtype=torch.float32)
+    def lib_strided(qb):
+        s = torch.mm(qb.to(torch.bfloat16), v.T, out_dtype=torch.float32)
         s = torch.where(w[None, :] == 0, float("-inf"), s * w[None, :])
-        return s.view(BATCH, nblk, 32, 128).amax(dim=2).view(BATCH, nseg)
+        return s.view(len(qb), nblk, 32, 128).amax(dim=2).view(len(qb), nseg)
 
-    def lib_contig():
-        s = torch.mm(v, qc.T, out_dtype=torch.float32)
+    def lib_contig(qb):
+        s = torch.mm(v, qb.to(torch.bfloat16).T, out_dtype=torch.float32)
         s = torch.where(w[:, None] == 0, float("-inf"), s * w[:, None])
-        return s.view(nseg, 32, BATCH).amax(dim=1)
+        return s.view(nseg, 32, len(qb)).amax(dim=1)
 
-    for name, fn, kern in (("segmax", lib_strided, segmax.segmax_scores),
-                           ("segmax_contig", lib_contig, segmax.segmax_scores_contig)):
-        ref = kern(q, v, w)
-        lib = fn()
-        fin = torch.isfinite(ref)
-        require(torch.equal(fin, torch.isfinite(lib))
-                and (lib - ref)[fin].abs().max().item() <= TOL,
-                f"{name}: the library composition computes another function")
-        out[name]["library_ms"] = cuda_ms(fn, 10)
-        log(f"[times] {name} library composition (torch.mm out_dtype=f32, multiply, where, "
-            f"amax: 4 calls): {out[name]['library_ms']:.4f} ms")
+    # at BATCH (the JSON line's row), then at B = 256, scored_topk's cap, where
+    # two query tiles share each corpus tile through L2
+    gen = torch.Generator(device=v.device).manual_seed(SEED + 256)
+    q256 = torch.nn.functional.normalize(torch.randn(256, DIM, device=v.device, generator=gen),
+                                         dim=1)
+    for qb in (q, q256):
+        for name, fn, kern in (("segmax", lib_strided, segmax.segmax_scores),
+                               ("segmax_contig", lib_contig, segmax.segmax_scores_contig)):
+            ref = kern(qb, v, w)
+            lib = fn(qb)
+            fin = torch.isfinite(ref)
+            require(torch.equal(fin, torch.isfinite(lib))
+                    and (lib - ref)[fin].abs().max().item() <= TOL,
+                    f"{name}: the library composition computes another function")
+            (k1, k2), (l1, l2) = in_turns(lambda: kern(qb, v, w), lambda: fn(qb), 10, 10)
+            if qb is q:
+                out[name]["library_ms"] = (l1 + l2) / 2
+            log(f"[times] {name} B={len(qb)}: library composition (torch.mm out_dtype=f32, "
+                f"multiply, where, amax: 4 calls) {l1:.4f} / {l2:.4f} ms, in turns with the "
+                f"kernel {k1:.4f} / {k2:.4f} ms")
+    del q256
 
     m1, _, _, _, _, _, _, s1, _ = segmax.segmax4_sup_scores(q, v, w)
     for kk in (10, 3):

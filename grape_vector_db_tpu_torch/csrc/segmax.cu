@@ -4,13 +4,15 @@
 // grape_vector_db_tpu/ops/segmax_pallas.py:
 //   <4, T, PLAIN>   B1  _segmax4_kernel (fold _segmax4_core), segmax4_scores_pallas
 //   <2, T, PLAIN>   B2  _segmax2_kernel ("eqfold"),           segmax2_scores_pallas
-//   <1, T, PLAIN>   B9  _segmax_kernel (maxima only),         segmax_scores_pallas
-//   <1, T, CONTIG>  B10 _segmax_kernel_contig,                segmax_scores_pallas_contig
+//   <1, F, PLAIN>   B9  _segmax_kernel (maxima only),         segmax_scores_pallas
+//   <1, F, CONTIG>  B10 _segmax_kernel_contig,                segmax_scores_pallas_contig
 //   <2, T, SELFOLD> B8  _segmax2_kernel_selfold,              segmax2_scores_pallas(impl="selfold")
 //   <4, T, SUP>     B7  _segmax4_sup_kernel,                  segmax4_sup_scores_pallas
-// (T: bf16 or f32 storage). It is bound to PyTorch through a plain C
-// interface (ctypes) by grape_vector_db_tpu_torch/ops/segmax.py, which also
-// holds the plain PyTorch version of every instance's contract.
+// (T: bf16 or f32 storage; F: f32 storage only, since B9 and B10 in bf16
+// storage run the TMA + wgmma kernel of csrc/segmax_max.cu). It is bound to
+// PyTorch through a plain C interface (ctypes) by
+// grape_vector_db_tpu_torch/ops/segmax.py, which also holds the plain
+// PyTorch version of every instance's contract.
 //
 // Contract. For query b and corpus row r:
 //   s[b, r] = dot(q[b], v[r]) * w[r]   (f32 accumulation; q already in the
@@ -55,8 +57,9 @@
 // so the extra query tiles at B > 32 mostly re-read the corpus from L2.
 // As written the kernel reaches neither bound: a block stages each K-tile
 // with plain loads between two barriers, so it waits on memory; two blocks
-// per SM (bf16, 128 registers) hide part of that wait. Later work: cp.async
-// or TMA double buffering, wgmma, a persistent grid.
+// per SM (bf16, 128 registers) hide part of that wait. Later work: move the
+// other instances onto the TMA ring, wgmma and persistent grid of
+// csrc/segmax_max.cu, whose tiles hold whole segments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -347,8 +350,8 @@ extern "C" int gvdb_segmax(int topj, int dtype, int device, const void* q, const
   return (int)cudaErrorInvalidValue;
 }
 
-// The instances of B7-B10. variant: 0 = B9 (maxima, out_m [B, N/32]),
-// 1 = B10 (contiguous maxima, out_m [N/32, B]), 2 = B8 (selfold: out_m
+// The instances of B7-B10. variant: 0 = B9 (maxima, out_m [B, N/32]; f32
+// storage only), 1 = B10 (contiguous maxima, out_m [N/32, B]; f32 only), 2 = B8 (selfold: out_m
 // [2, B, N/32], out_i [1, B, N/32]), 3 = B7 (B1's planes plus out_s
 // [2, B, N/4096]). Unused outputs may be null. dtype, layouts and the return
 // value as gvdb_segmax.
@@ -362,11 +365,11 @@ extern "C" int gvdb_segmax_variant(int variant, int dtype, int device, const voi
   using BF = __nv_bfloat16;
   const bool bf = dtype == 0;
   switch (variant) {
-    case 0:
-      return bf ? (int)launch<1, BF, PLAIN>(q, v, w, out_m, nullptr, nullptr, B, N, D, s)
+    case 0:   // bf16 storage: gvdb_segmax_max (csrc/segmax_max.cu)
+      return bf ? (int)cudaErrorInvalidValue
                 : (int)launch<1, float, PLAIN>(q, v, w, out_m, nullptr, nullptr, B, N, D, s);
     case 1:
-      return bf ? (int)launch<1, BF, CONTIG>(q, v, w, out_m, nullptr, nullptr, B, N, D, s)
+      return bf ? (int)cudaErrorInvalidValue
                 : (int)launch<1, float, CONTIG>(q, v, w, out_m, nullptr, nullptr, B, N, D, s);
     case 2:
       return bf ? (int)launch<2, BF, SELFOLD>(q, v, w, out_m, out_i, nullptr, B, N, D, s)

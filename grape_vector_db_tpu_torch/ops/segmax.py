@@ -12,11 +12,13 @@ the planes compare one to one with the Pallas kernels' interpret-mode output.
 The contiguous layout (``segmax_scores_contig``) has segment g = rows
 ``32 * g .. 32 * g + 31`` instead.
 
-Phase 1 has two implementations of each contract: the hand-written CUDA
-kernels of one template in ``csrc/segmax.cu``, built with ``nvcc`` at first
-use into ``grape_vector_db_tpu_torch/_build/`` and called through a plain C
-interface, and the plain PyTorch versions (``*_ref``). Wrapper, the TPU
-kernel it replaces, ``LAUNCHES`` key:
+Phase 1 has two implementations of each contract: hand-written CUDA
+kernels, built with ``nvcc`` at first use into
+``grape_vector_db_tpu_torch/_build/`` and called through a plain C
+interface, and the plain PyTorch versions (``*_ref``). The kernels are the
+instances of one template in ``csrc/segmax.cu``, except B9 and B10 in bf16
+storage, which run the TMA + wgmma kernel of ``csrc/segmax_max.cu``.
+Wrapper, the TPU kernel it replaces, ``LAUNCHES`` key:
 
 - ``segmax4_scores``: B1 ``_segmax4_kernel``, ``segmax4``;
 - ``segmax2_scores``: B2 ``_segmax2_kernel``, ``segmax2``;
@@ -44,7 +46,7 @@ import torch
 from grape_vector_db_tpu_torch.ops import _build
 from grape_vector_db_tpu_torch.ops.distance import f32_dots, prepare_queries
 
-__all__ = ["SEG", "CB", "LAUNCHES", "reset_launch_counts", "build_kernels",
+__all__ = ["SEG", "CB", "LAUNCHES", "reset_launch_counts", "build_kernels", "build_max_kernel",
            "make_weight_plane", "segmax4_scores", "segmax4_scores_ref",
            "segmax2_scores", "segmax2_scores_ref", "segmax_scores",
            "segmax_scores_ref", "segmax_scores_contig", "segmax_scores_contig_ref",
@@ -89,6 +91,19 @@ def build_kernels() -> ctypes.CDLL:
     return _build.load("segmax", _bind)
 
 
+def _bind_max(lib: ctypes.CDLL) -> None:
+    lib.gvdb_segmax_max.restype = ctypes.c_int
+    lib.gvdb_segmax_max.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.gvdb_segmax_max_smem_bytes.restype = ctypes.c_int
+    lib.gvdb_segmax_max_smem_bytes.argtypes = []
+
+
+def build_max_kernel() -> ctypes.CDLL:
+    """Build (once per source hash) and load ``csrc/segmax_max.cu``."""
+    return _build.load("segmax_max", _bind_max)
+
+
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # (top-j, variant) -> (LAUNCHES key, variant code of gvdb_segmax_variant;
@@ -96,6 +111,13 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _INSTANCES = {(4, "plain"): ("segmax4", None), (2, "plain"): ("segmax2", None),
               (1, "plain"): ("segmax", 0), (1, "contig"): ("segmax_contig", 1),
               (2, "selfold"): ("segmax2_selfold", 2), (4, "sup"): ("segmax4_sup", 3)}
+
+
+def _library(topj: int, dtype: torch.dtype) -> str:
+    """The source whose kernel an instance launches: the segment maxima (B9,
+    B10) in bf16 storage run ``segmax_max``; every other instance, f32
+    storage included, runs the ``segmax`` template."""
+    return "segmax_max" if topj == 1 and dtype == torch.bfloat16 else "segmax"
 
 
 def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
@@ -122,10 +144,11 @@ def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
     wc = w.to(torch.float32).contiguous()
     if not vectors.is_contiguous():
         raise ValueError(f"{name}: vectors must be contiguous")
-    for t in (qc, vectors):
+    library = _library(topj, vectors.dtype)
+    # the template loads q and vectors 16 bytes at a time; TMA also reads w
+    for t in (qc, vectors, wc) if library == "segmax_max" else (qc, vectors):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: q and vectors must be 16-byte aligned")
-    lib = build_kernels()
+            raise ValueError(f"{name}: q, vectors (and for TMA, w) must be 16-byte aligned")
     shape = (n // SEG, b) if variant == "contig" else (topj, b, n // SEG)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)
     idxs = torch.empty((topj - 1, b, n // SEG), dtype=torch.int32, device=dev)
@@ -134,10 +157,13 @@ def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (_DTYPE_CODE[vectors.dtype], dev.index or 0, qc.data_ptr(), vectors.data_ptr(),
             wc.data_ptr(), vals.data_ptr(), idxs.data_ptr())
-    if code is None:
-        rc = lib.gvdb_segmax(topj, *args, b, n, d, stream)
+    if library == "segmax_max":        # code: 0 strided, 1 contig; bf16 only
+        lib = build_max_kernel()
+        rc = lib.gvdb_segmax_max(code, *args[1:6], b, n, d, stream)
     else:
-        rc = lib.gvdb_segmax_variant(code, *args, sup.data_ptr(), b, n, d, stream)
+        lib = build_kernels()
+        rc = (lib.gvdb_segmax(topj, *args, b, n, d, stream) if code is None
+              else lib.gvdb_segmax_variant(code, *args, sup.data_ptr(), b, n, d, stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.gvdb_cuda_error_string(rc).decode()} ({rc})")

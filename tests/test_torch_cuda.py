@@ -89,6 +89,86 @@ def test_segmax_variant_kernel_matches_plain(cuda, variant, dtype):
         assert (got[1] != tseg.segmax2_scores(q, v, w)[1]).any()
 
 
+def _gaussian_segments(cuda, layout, b, d, n):
+    """(q, v, w) on the card: Gaussian bf16 rows, normalized queries, the
+    cosine weight with 5% of rows invalid, and all rows of segments 0-7 (the
+    kernel's first corpus tile in both layouts) and of segment 13 invalid."""
+    gen = torch.Generator(device=cuda).manual_seed(b * 100_003 + d * 101 + n)
+    v = torch.randn(n, d, device=cuda, generator=gen).to(torch.bfloat16)
+    q = torch.nn.functional.normalize(torch.randn(b, d, device=cuda, generator=gen), dim=1)
+    w = 1.0 / v.float().norm(dim=1)
+    w = torch.where(torch.rand(n, device=cuda, generator=gen) < 0.05, 0.0, w)
+    rows = torch.arange(n, device=cuda)
+    seg = rows // tseg.SEG if layout == "contig" else (
+        rows // tseg.CB * (tseg.CB // tseg.SEG) + rows % (tseg.CB // tseg.SEG))
+    w[(seg < 8) | (seg == 13)] = 0.0
+    return q, v, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 8192, 12288])
+@pytest.mark.parametrize("d", [128, 384, 768, 1536])
+@pytest.mark.parametrize("b", [1, 40, 64, 65, 128, 200, 256])
+@pytest.mark.parametrize("layout", ["strided", "contig"])
+def test_segmax_max_kernel_matches_plain(cuda, layout, b, d, n):
+    """B9/B10 in bf16 storage (csrc/segmax_max.cu, TMA + wgmma) on Gaussian
+    rows: -inf exactly where the plain version has it (the all-invalid first
+    tile and segment 13 among them), values within 3e-3 (bf16 operands, f32
+    sums in another order); one launch."""
+    key = "segmax" if layout == "strided" else "segmax_contig"
+    kern, plain = VARIANTS[key]
+    q, v, w = _gaussian_segments(cuda, layout, b, d, n)
+    before = tseg.LAUNCHES[key]
+    got = kern(q, v, w)
+    torch.cuda.synchronize()
+    assert tseg.LAUNCHES[key] == before + 1
+    want = plain(q, v, w)
+    assert got.shape == want.shape
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    planes = got if layout == "strided" else got.T          # [B, N/32]
+    assert torch.isneginf(planes[:, :8]).all() and torch.isneginf(planes[:, 13]).all()
+    fin = torch.isfinite(want)
+    assert fin.any() and (got - want)[fin].abs().max().item() <= 3e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 130, 256])
+@pytest.mark.parametrize("layout", ["strided", "contig"])
+def test_segmax_max_kernel_integer_case_is_exact(cuda, layout, b):
+    """On the integer case every sum is exact, so B9/B10 in bf16 storage
+    equal their plain versions bit for bit, across one, two and full query
+    tiles."""
+    key = "segmax" if layout == "strided" else "segmax_contig"
+    kern, plain = VARIANTS[key]
+    v, q, w = _integer_case(b=b)
+    v, q, w = v.to(cuda).to(torch.bfloat16), q.to(cuda), w.to(cuda)
+    got = kern(q, v, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(q, v, w))
+
+
+@pytest.mark.cuda
+def test_segmax_max_runs_bf16_only_and_never_falls_back(cuda, monkeypatch):
+    """f32 storage runs the csrc/segmax.cu template even when the TMA +
+    wgmma library cannot be had; bf16 storage then raises, as it does for a
+    w that TMA cannot read (not 16-byte aligned): no path falls back."""
+    v, q, w = _integer_case()
+    v, q, w = v.to(cuda), q.to(cuda), w.to(cuda)
+
+    def refuse():
+        raise RuntimeError("segmax_max withheld")
+
+    monkeypatch.setattr(tseg, "build_max_kernel", refuse)
+    for kern, plain in (VARIANTS["segmax"], VARIANTS["segmax_contig"]):
+        assert torch.equal(kern(q, v, w), plain(q, v, w))
+        with pytest.raises(RuntimeError, match="withheld"):
+            kern(q, v.to(torch.bfloat16), w)
+    monkeypatch.undo()
+    shifted = torch.ones(w.shape[0] + 1, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        tseg.segmax_scores(q, v.to(torch.bfloat16), shifted)
+
+
 ENTRY_POINTS = {
     "strided": (tseg.segmax_topk, {}, "segmax"),
     "contig": (tseg.segmax_topk, {"layout": "contig"}, "segmax_contig"),
