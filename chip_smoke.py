@@ -10,14 +10,18 @@ together), checks each kernel against its plain PyTorch version, and drives
 the port's paths through ``VectorDatabase`` on the card:
 
 - flat (cosine, bf16, D=768) at 1,048,576 seeded Gaussian documents, against
-  a numpy oracle; its large-corpus search runs B1/B2 (``csrc/segmax.cu``);
+  a numpy oracle; its large-corpus search runs B1/B2, in bf16 storage the
+  persistent TMA + wgmma kernel of ``csrc/segmax_max.cu`` (held against
+  their plain versions at B=128 and timed beside the nearest library
+  composition; in f32 storage they run the ``csrc/segmax.cu`` template,
+  checked on an exact integer case);
 - the segment-max entry points at the same width (1,048,576 x 768 bf16,
   B=128): ``segmax_topk`` with both layouts (B9, B10), ``segmax4_topk(impl=
   "sup")`` (B7) and ``segmax2_topk(impl="selfold")`` (B8), at k = 10, k = 3
   and filtered, against the exact one-matmul oracle on the card, after each
   of B7-B10 is held against its plain version (B9 and B10 in bf16 storage
   run the TMA + wgmma kernel of ``csrc/segmax_max.cu``, in f32 storage the
-  ``csrc/segmax.cu`` template);
+  ``csrc/segmax.cu`` template, as B7 and B8 do in both);
 - the IVF family at the repository's 1M IVF configuration (bench.py:483-506:
   1,048,576 x 768 clustered rows, 16,384 Gaussian centres + 0.25 noise,
   nlist 4096, nprobe 16): ``ivf`` runs B3, ``ivf_int8`` B4 and ``ivf_int4``
@@ -107,10 +111,11 @@ BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak
 
 KERNELS = {
-    # name: (source in the repo, the TPU kernel it replaces)
-    "segmax4": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
+    # name: (source in the repo, the TPU kernel it replaces); B1 and B2 in
+    # bf16 storage (the flat path's) run the TMA + wgmma kernel
+    "segmax4": ("grape_vector_db_tpu_torch/csrc/segmax_max.cu",
                 "grape_vector_db_tpu/ops/segmax_pallas.py:354"),
-    "segmax2": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
+    "segmax2": ("grape_vector_db_tpu_torch/csrc/segmax_max.cu",
                 "grape_vector_db_tpu/ops/segmax_pallas.py:124"),
     # B9, B10, B7, B8: the segment-max entry points' kernels; B9 and B10 in
     # bf16 storage (the main path's) run the TMA + wgmma kernel
@@ -191,15 +196,18 @@ def ptxas_summary(build_log: str):
     segmax_names = {("4", "0"): "segmax4", ("2", "0"): "segmax2", ("1", "0"): "segmax",
                     ("1", "1"): "segmax_contig", ("2", "2"): "segmax2_selfold",
                     ("4", "3"): "segmax4_sup"}
+    # segmax_max_kernel<TOPJ, CONTIG> -> the LAUNCHES key of the instance
+    max_names = {("1", "0"): "segmax", ("1", "1"): "segmax_contig", ("2", "0"): "segmax2",
+                 ("4", "0"): "segmax4"}
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
-        mx = re.search(r"Compiling entry function '.*segmax_max_kernelILb(\d)E", line)
+        mx = re.search(r"Compiling entry function '.*segmax_max_kernelILi(\d)ELb(\d)E", line)
         m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)E(\w+?)Li(\d)EEEv", line)
         p = re.search(r"Compiling entry function '.*probe_kernelILi(\d)E+v", line)
         h = re.search(r"Compiling entry function '.*hamming_kernel", line)
         g = re.search(r"Compiling entry function '.*gather_dots_kernelILi(\d)ELb(\d)E", line)
         if mx:
-            name = f"{'segmax_contig' if mx[1] == '1' else 'segmax'}<bf16, TMA + wgmma>"
+            name = f"{max_names[mx[1], mx[2]]}<bf16, TMA + wgmma>"
         elif m:
             name = f"{segmax_names[m[1], m[3]]}<{'bf16' if 'bfloat16' in m[2] else 'f32'}>"
         elif p:
@@ -331,10 +339,23 @@ def integer_segments():
 
 def segmax_phase():
     """B1 and B2 against their plain versions at the flat path's shapes, then
-    on an exact-arithmetic adversarial case; also times both."""
+    on an exact-arithmetic adversarial case; also times both, in turns with
+    their plain versions and with the nearest library composition."""
     from grape_vector_db_tpu_torch.ops import segmax
 
     v, valid, w, q = segmax_corpus()
+    nseg, nblk = N_ROWS // 32, N_ROWS // 4096
+    qb = q.to(torch.bfloat16)
+
+    def library(topj):
+        """The nearest library composition of B1 / B2: four calls, the [B, N]
+        score plane materialized, the members last for torch.topk."""
+        def fn():
+            s = torch.mm(qb, v.T, out_dtype=torch.float32)
+            s = torch.where(w[None, :] == 0, float("-inf"), s * w[None, :])
+            return torch.topk(s.view(BATCH, nblk, 32, 128).transpose(2, 3), topj, dim=3)
+        return fn
+
     out = {}
     for name, topj, kern, plain in (
             ("segmax4", 4, segmax.segmax4_scores, segmax.segmax4_scores_ref),
@@ -345,29 +366,42 @@ def segmax_phase():
         if name == "segmax2":   # (m1, i1, m2) -> values first
             got, want = (got[0], got[2], got[1]), (want[0], want[2], want[1])
         err = plane_check(f"{name} [{BATCH},{DIM}] x [{N_ROWS},{DIM}] bf16", got, want, topj)
+        lib = library(topj)
+        lib_vals = lib().values.reshape(BATCH, nseg, topj)
+        vals = torch.stack(got[:topj], dim=2)
+        fin = torch.isfinite(vals)
+        require(torch.equal(fin, torch.isfinite(lib_vals))
+                and (lib_vals - vals)[fin].abs().max().item() <= TOL,
+                f"{name}: the library composition computes another function")
+        del lib_vals
         (k1, k2), (p1, p2) = in_turns(lambda: kern(q, v, w), lambda: plain(q, v, w))
+        (k3, k4), (l1, l2) = in_turns(lambda: kern(q, v, w), lib, 10, 10)
         nbytes = (N_ROWS * DIM * 2 + N_ROWS * 4 + BATCH * DIM * 2
-                  + (2 * topj - 1) * BATCH * (N_ROWS // 32) * 4)
+                  + (2 * topj - 1) * BATCH * nseg * 4)
         out[name] = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                     **bound(nbytes, 2.0 * BATCH * N_ROWS * DIM), "library_ms": None}
+                     **bound(nbytes, 2.0 * BATCH * N_ROWS * DIM), "library_ms": (l1 + l2) / 2}
         log(f"[times] {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
             f"bound {out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
-            f"(B={BATCH}, N={N_ROWS}, D={DIM}, bf16)")
-    del v, valid, w, q
+            f"({nbytes / 1e9:.4f} GB; B={BATCH}, N={N_ROWS}, D={DIM}, bf16)")
+        log(f"[times] {name}: library composition (torch.mm out_dtype=f32, multiply, where, "
+            f"topk({topj}): 4 calls) {l1:.4f} / {l2:.4f} ms, in turns with the kernel "
+            f"{k3:.4f} / {k4:.4f} ms")
+    del v, valid, w, q, qb
 
     # exact arithmetic: every plane must match exactly
     qi, vi, wi = integer_segments()
     for dtype in (torch.bfloat16, torch.float32):
         vt = vi.to(dtype)
-        for name, kern, plain in (("segmax4", segmax.segmax4_scores, segmax.segmax4_scores_ref),
-                                  ("segmax2", segmax.segmax2_scores, segmax.segmax2_scores_ref)):
+        for name, topj, kern, plain in (
+                ("segmax4", 4, segmax.segmax4_scores, segmax.segmax4_scores_ref),
+                ("segmax2", 2, segmax.segmax2_scores, segmax.segmax2_scores_ref)):
             got = kern(qi, vt, wi)
             torch.cuda.synchronize()
             for g, p in zip(got, plain(qi, vt, wi)):
                 require(torch.equal(g.float(), p.float()),
                         f"{name} {dtype}: adversarial planes differ")
-            log(f"[kernels] {name} {dtype} adversarial (ties, duplicates, invalid "
-                "segment, B=40): every plane equal")
+            log(f"[kernels] {name} {dtype} adversarial (ties, duplicates, invalid segment, "
+                f"B=40; csrc/{segmax._library((topj, 'plain'), dtype)}.cu): every plane equal")
     return out
 
 
@@ -478,7 +512,7 @@ def segmax_variants_phase():
         diff = (selfold(qi, vt, wi)[1] != segmax.segmax2_scores(qi, vt, wi)[1]).sum().item()
         require(diff > 0, "segmax2_selfold: i1 equals B2's everywhere on the tie case")
         log(f"[kernels] segmax, segmax_contig, segmax4_sup, segmax2_selfold {dtype} adversarial "
-            f"(B=40; B9/B10 from csrc/{segmax._library(1, dtype)}.cu): every plane equal; "
+            f"(B=40; B9/B10 from csrc/{segmax._library((1, 'plain'), dtype)}.cu): every plane equal; "
             f"selfold's i1 differs from B2's at {diff} ties")
 
     # the entry points: this phase's main path, each call one launch of its kernel
@@ -863,8 +897,36 @@ def flat_path():
     log(f"[times] flat vector_search_batch B={BATCH} k=10 at {N_ROWS - 1000} documents: "
         f"median {med * 1e3:.3f} ms of 20 ({BATCH / med:.0f} queries/s); "
         f"ingest {N_ROWS / ingest_s:.0f} docs/s")
+    flat_breakdown(db.index, queries, med)
     db.close()
     return {name: launches[name] for name in ("segmax4", "segmax2")}
+
+
+def flat_breakdown(idx, queries, e2e_s):
+    """Where a flat vector_search_batch call's time goes: the device span of
+    scored_topk (B1 and phase 2; CUDA events), B1 alone on the index's own
+    tensors, the index's search_batch on the host clock (plus upload,
+    readback, hit building), and the planner and result building (the
+    rest)."""
+    from grape_vector_db_tpu_torch.index import flat
+    from grape_vector_db_tpu_torch.ops import segmax
+    from grape_vector_db_tpu_torch.ops.distance import prepare_queries, scored_topk
+
+    qt = torch.from_numpy(queries).to(DEV)
+    chunk = min(flat._SEARCH_CHUNK, idx.capacity)
+    dev_ms = cuda_ms(lambda: scored_topk(qt, idx.vectors, idx.norms, idx.valid, 10,
+                                         metric=idx.metric, chunk=chunk,
+                                         mode=idx.search_mode), 20)
+    qp = prepare_queries(qt, idx.metric)
+    w = segmax.make_weight_plane(idx.norms, idx.valid, idx.metric)
+    b1_ms = cuda_ms(lambda: segmax.segmax4_scores(qp, idx.vectors, w), 20)
+    index_ms = timed(lambda: idx.search_batch(queries, 10)) * 1e3
+    e2e_ms = e2e_s * 1e3
+    log(f"[times] flat breakdown of vector_search_batch B={BATCH} k=10: end to end "
+        f"{e2e_ms:.3f} ms; index.search_batch {index_ms:.3f} ms (median of 20); device "
+        f"scored_topk span {dev_ms:.3f} ms (B1 {b1_ms:.3f} ms, phase 2 {dev_ms - b1_ms:.3f} ms); "
+        f"upload, readback and hit building {index_ms - dev_ms:.3f} ms; planner and results "
+        f"{e2e_ms - index_ms:.3f} ms; device busy share ~{dev_ms / e2e_ms:.2f}")
 
 
 # -- the IVF family ---------------------------------------------------------------

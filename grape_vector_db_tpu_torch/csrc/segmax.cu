@@ -2,17 +2,17 @@
 //
 // One template, six instances, each replacing a Pallas TPU kernel of
 // grape_vector_db_tpu/ops/segmax_pallas.py:
-//   <4, T, PLAIN>   B1  _segmax4_kernel (fold _segmax4_core), segmax4_scores_pallas
-//   <2, T, PLAIN>   B2  _segmax2_kernel ("eqfold"),           segmax2_scores_pallas
+//   <4, F, PLAIN>   B1  _segmax4_kernel (fold _segmax4_core), segmax4_scores_pallas
+//   <2, F, PLAIN>   B2  _segmax2_kernel ("eqfold"),           segmax2_scores_pallas
 //   <1, F, PLAIN>   B9  _segmax_kernel (maxima only),         segmax_scores_pallas
 //   <1, F, CONTIG>  B10 _segmax_kernel_contig,                segmax_scores_pallas_contig
 //   <2, T, SELFOLD> B8  _segmax2_kernel_selfold,              segmax2_scores_pallas(impl="selfold")
 //   <4, T, SUP>     B7  _segmax4_sup_kernel,                  segmax4_sup_scores_pallas
-// (T: bf16 or f32 storage; F: f32 storage only, since B9 and B10 in bf16
-// storage run the TMA + wgmma kernel of csrc/segmax_max.cu). It is bound to
-// PyTorch through a plain C interface (ctypes) by
-// grape_vector_db_tpu_torch/ops/segmax.py, which also holds the plain
-// PyTorch version of every instance's contract.
+// (T: bf16 or f32 storage; F: f32 storage only, since B1, B2, B9 and B10 in
+// bf16 storage run the TMA + wgmma kernel of csrc/segmax_max.cu, and the C
+// entries here refuse them in bf16). It is bound to PyTorch through a plain C
+// interface (ctypes) by grape_vector_db_tpu_torch/ops/segmax.py, which also
+// holds the plain PyTorch version of every instance's contract.
 //
 // Contract. For query b and corpus row r:
 //   s[b, r] = dot(q[b], v[r]) * w[r]   (f32 accumulation; q already in the
@@ -57,9 +57,12 @@
 // so the extra query tiles at B > 32 mostly re-read the corpus from L2.
 // As written the kernel reaches neither bound: a block stages each K-tile
 // with plain loads between two barriers, so it waits on memory; two blocks
-// per SM (bf16, 128 registers) hide part of that wait. Later work: move the
-// other instances onto the TMA ring, wgmma and persistent grid of
-// csrc/segmax_max.cu, whose tiles hold whole segments.
+// per SM (bf16, 128 registers) hide part of that wait. B1, B2, B9 and B10 in
+// bf16 storage have moved onto the TMA ring, wgmma and persistent grid of
+// csrc/segmax_max.cu, whose tiles hold whole segments; later work moves B7
+// and B8 there too (B8: the same top-2 epilogue with the members walked in
+// bit-reversed order; B7: the block maxima across a block's 16 tiles, which
+// land on different SMs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -331,22 +334,20 @@ bool shape_ok(int B, int N, int D) {
 
 }  // namespace
 
-// topj: 4 or 2. dtype: 0 = bf16 storage, 1 = f32 storage. q [B, D] and
-// v [N, D] in the storage type, w [N] f32, out_m [topj, B, N/32] f32,
-// out_i [topj-1, B, N/32] int32, all contiguous, 16-byte aligned, on
-// `device`. Returns a cudaError_t (0 = launched).
+// topj: 4 or 2; f32 storage only (dtype 1): in bf16 storage (dtype 0) B1 and
+// B2 run gvdb_segmax_max (csrc/segmax_max.cu), so dtype 0 is refused with
+// cudaErrorInvalidValue. q [B, D] and v [N, D] f32, w [N] f32, out_m
+// [topj, B, N/32] f32, out_i [topj-1, B, N/32] int32, all contiguous, 16-byte
+// aligned, on `device`. Returns a cudaError_t (0 = launched).
 extern "C" int gvdb_segmax(int topj, int dtype, int device, const void* q, const void* v,
                            const float* w, float* out_m, int32_t* out_i, int B, int N, int D,
                            void* stream) {
-  if (!shape_ok(B, N, D)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, N, D) || dtype != 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using BF = __nv_bfloat16;
-  if (topj == 4 && dtype == 0) return (int)launch<4, BF, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
-  if (topj == 4 && dtype == 1) return (int)launch<4, float, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
-  if (topj == 2 && dtype == 0) return (int)launch<2, BF, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
-  if (topj == 2 && dtype == 1) return (int)launch<2, float, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
+  if (topj == 4) return (int)launch<4, float, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
+  if (topj == 2) return (int)launch<2, float, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
   return (int)cudaErrorInvalidValue;
 }
 

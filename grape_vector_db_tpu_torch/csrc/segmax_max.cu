@@ -1,27 +1,34 @@
-// Segment maxima on the tensor cores (Hopper, sm_90a): the bf16-storage
-// instances of B9 and B10.
+// Segment top-j on the tensor cores (Hopper, sm_90a): the bf16-storage
+// instances of B1, B2, B9 and B10.
 //
 // Replaces the Pallas TPU kernels of grape_vector_db_tpu/ops/segmax_pallas.py:
-//   strided  B9  _segmax_kernel (:53, call :109),         segmax_scores_pallas
-//   contig   B10 _segmax_kernel_contig (:728, call :784), segmax_scores_pallas_contig
+//   <4, strided> B1  _segmax4_kernel (:354, call :482),       segmax4_scores_pallas
+//   <2, strided> B2  _segmax2_kernel (:124, call :217),       segmax2_scores_pallas
+//   <1, strided> B9  _segmax_kernel (:53, call :109),         segmax_scores_pallas
+//   <1, contig>  B10 _segmax_kernel_contig (:728, call :784), segmax_scores_pallas_contig
 // It is bound to PyTorch through a plain C interface (ctypes) by
-// grape_vector_db_tpu_torch/ops/segmax.py (segmax_scores, segmax_scores_contig),
-// which also holds the plain PyTorch versions. f32 storage stays on the
+// grape_vector_db_tpu_torch/ops/segmax.py (segmax4_scores, segmax2_scores,
+// segmax_scores, segmax_scores_contig), which also holds the plain PyTorch
+// versions. f32 storage, and B7 and B8 in either storage, stay on the
 // template of csrc/segmax.cu (full-f32 FMA: the port keeps TF32 off).
 //
 // Contract (as csrc/segmax.cu states it). For query b and corpus row r:
 //   s[b, r] = dot(q[b], v[r]) * w[r]   (bf16 operands, f32 accumulation), and
-//   s = -inf where w[r] == 0 (select, not add). out[b, g] is the maximum of the
-//   32 scores of segment g.
+//   s = -inf where w[r] == 0 (select, not add).
 //   strided: segment g = blk * 128 + j holds rows blk * 4096 + j + 128 m
-//            (m < 32); out is [B, N/32].
-//   contig:  segment g holds rows 32 g .. 32 g + 31; out is [N/32, B].
+//            (m < 32). Per (b, g) the kernel writes the TOPJ largest of the
+//            32 scores (a multiset, -inf included) to out_m [TOPJ, B, N/32]
+//            and the member index m of ranks 1 .. TOPJ-1 to out_i
+//            [TOPJ-1, B, N/32], members ordered by (score descending, m
+//            ascending), all -inf segments included (m = 0, 1, 2).
+//   contig:  segment g holds rows 32 g .. 32 g + 31; TOPJ = 1 only, and out_m
+//            is the maxima, [N/32, B].
 //
 // What bounds it on an H100. At B = 128 and a 1,048,576 x 768 bf16 corpus the
-// corpus read is 1.61 GB; with w (4 MB), q and the 16.8 MB output that is
-// 0.487 ms at 3.35 TB/s. The products are 0.206 TFLOP, 0.21 ms at 989 TFLOP/s:
-// the kernel is bound by bytes. The [B, N] score plane (512 MB) never leaves
-// the SM.
+// corpus read is 1.61 GB; with w (4 MB), q and the planes written (16.8 MB for
+// TOPJ = 1, 50.3 MB for 2, 117.4 MB for 4) that is 0.487 / 0.497 / 0.517 ms at
+// 3.35 TB/s. The products are 0.206 TFLOP, 0.21 ms at 989 TFLOP/s: the kernel
+// is bound by bytes. The [B, N] score plane (512 MB) never leaves the SM.
 //
 // Design.
 // - A tile is 128 queries x 256 corpus rows that hold 8 whole segments, so no
@@ -34,10 +41,10 @@
 //   memory): 128 accumulators a thread. In the accumulator layout, column
 //   group i of a thread is shared rows 8 i .. 8 i + 7, and its two columns are
 //   rows 8 i + 2 t4 + {0, 1}. Strided: group i is member i and the two columns
-//   are two segments, so a thread holds all 32 members of its two segments
-//   and the maximum needs no shuffle. Contig: groups 4 s .. 4 s + 3 are
-//   segment s, so a thread takes the maximum of its 8 values of each segment
-//   and two __shfl_xor_sync over t4 finish it.
+//   are two segments, so a thread holds all 32 members of its two segments,
+//   for two query rows, and its top-j needs no shuffle. Contig: groups
+//   4 s .. 4 s + 3 are segment s, so a thread takes the maximum of its 8
+//   values of each segment and two __shfl_xor_sync over t4 finish it.
 // - One producer thread issues TMA loads into a 4-stage ring (each stage: q
 //   [128 x 64] 16 KB, v [256 x 64] 32 KB) and the tile's w (1 KB, two slots),
 //   completed on mbarriers with expect-tx; the consumers release a stage once
@@ -48,10 +55,15 @@
 //   epilogue. The query tiles of one corpus tile are adjacent in the walk, so
 //   at B > 128 the corpus comes from HBM once and from L2 after that. q rows
 //   past B are zero-filled by TMA's bounds, and their stores are skipped.
-// - Epilogue: multiply by w, select -inf where w == 0, take the maximum.
-//   Strided stores 8 contiguous floats a query row (one float2 a thread);
-//   contig stores 8 rows of [N/32, B], each warp store filling whole 32-byte
-//   sectors.
+// - Epilogue: multiply by w, select -inf where w == 0. Strided: each of a
+//   thread's four (query row, segment) pairs walks its members i = 0 .. 31 in
+//   ascending order and folds each score into a register list of TOPJ values
+//   and one packed word of member indices (insert below: TOPJ = 1 is the
+//   maximum); each plane stores 8 contiguous values a query row (one float2 or
+//   int2 a thread, a quad of lanes filling one 32-byte sector). Contig stores
+//   8 rows of [N/32, B], each warp store filling whole 32-byte sectors. The
+//   top-4 epilogue is ~128 insertions a thread a tile, a few microseconds
+//   that the ring's 4 stages (192 KB in flight) cover.
 // The tensor maps are encoded on the host for each call through the driver's
 // cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint (the library
 // links no libcuda), and passed as __grid_constant__ parameters.
@@ -215,15 +227,49 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Member indices of ranks 1 .. TOPJ-1 live packed in one word, IDX_BITS each
+// (m < 32): a (query, segment) list then costs TOPJ + 1 registers, not 2 * TOPJ.
+constexpr int IDX_BITS = 5;
+
+// Stable insertion of member m's score s into a descending top-TOPJ list.
+// `step` counts the members that arrived before this one, so slots
+// t >= step are still empty, and a score goes below every equal score
+// already listed (those arrived earlier). The ascending walk passes
+// step == m; the bit-reversed walk passes its step and the member it reads.
+// (The twin of insert in csrc/segmax.cu, copied because ops/_build.py
+// rebuilds a library when its own .cu source changes, not a shared header.)
+template <int TOPJ>
+__device__ __forceinline__ void insert(float (&val)[TOPJ], uint32_t& idx, float s, int step,
+                                       int m) {
+  // pos: the slots that keep their place (filled, and s does not beat them).
+  // pos == TOPJ drops s; every update below is then a no-op, so the
+  // insertion needs no branch.
+  int pos = 0;
+#pragma unroll
+  for (int t = 0; t < TOPJ; ++t) pos += (step > t && !(s > val[t])) ? 1 : 0;
+#pragma unroll
+  for (int t = TOPJ - 1; t >= 1; --t) {
+    if (t > pos) val[t] = val[t - 1];
+    if (t == pos) val[t] = s;
+  }
+  if (pos == 0) val[0] = s;
+  constexpr uint32_t kMask = (1u << (IDX_BITS * (TOPJ - 1))) - 1u;
+  const int sh = IDX_BITS * pos;
+  const uint32_t keep = idx & ((1u << sh) - 1u);
+  const uint32_t moved = (idx << IDX_BITS) & ~((1u << (sh + IDX_BITS)) - 1u);
+  idx = (keep | (static_cast<uint32_t>(m) << sh) | moved) & kMask;
+}
+
 // -- the kernel ------------------------------------------------------------------
 
 // Walk order: tile t is (corpus tile t / nqt, query tile t % nqt).
-template <bool CONTIG>
+template <int TOPJ, bool CONTIG>
 __global__ void __launch_bounds__(THREADS, 1)
 segmax_max_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap vmap,
-                  const __grid_constant__ CUtensorMap wmap, float* __restrict__ out, int B,
-                  int N, int ksteps) {
+                  const __grid_constant__ CUtensorMap wmap, float* __restrict__ out,
+                  int32_t* __restrict__ out_i, int B, int N, int ksteps) {
+  static_assert(TOPJ == 1 || (!CONTIG && (TOPJ == 2 || TOPJ == 4)), "no such instance");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -318,24 +364,47 @@ segmax_max_kernel(const __grid_constant__ CUtensorMap qmap,
       const float* wt = wbuf + ws * BN;
       const int b0 = q0 + wg * 64 + warp * 16 + g;   // rows b0 and b0 + 8
       if (!CONTIG) {
-        float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+        // pairs e: query row b0 + 8 (e >> 1), segment 2 t4 + (e & 1)
+        float val[4][TOPJ];
+        uint32_t idx[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {              // member i
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int t = 0; t < TOPJ; ++t) val[e][t] = -INFINITY;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {              // member i, ascending
           const float2 wv = *reinterpret_cast<const float2*>(wt + 8 * i + 2 * t4);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float wr = (e & 1) ? wv.y : wv.x;
-            mx[e] = fmaxf(mx[e], wr == 0.f ? -INFINITY : d[4 * i + e] * wr);
+            const float s = wr == 0.f ? -INFINITY : d[4 * i + e] * wr;
+            if constexpr (TOPJ == 1)
+              val[e][0] = fmaxf(val[e][0], s);
+            else
+              insert<TOPJ>(val[e], idx[e], s, i, i);
           }
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(wempty + 8 * ws);
         const size_t nseg = static_cast<size_t>(N) / SEG;
+        const size_t plane = static_cast<size_t>(B) * nseg;
         const size_t seg = static_cast<size_t>(c / TPB) * SPB + (c % TPB) * SEGS + 2 * t4;
-        if (b0 < B)
-          *reinterpret_cast<float2*>(out + b0 * nseg + seg) = make_float2(mx[0], mx[1]);
-        if (b0 + 8 < B)
-          *reinterpret_cast<float2*>(out + (b0 + 8) * nseg + seg) = make_float2(mx[2], mx[3]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {               // query rows b0, b0 + 8
+          const int b = b0 + 8 * h;
+          if (b >= B) continue;
+          const size_t at = b * nseg + seg;
+#pragma unroll
+          for (int t = 0; t < TOPJ; ++t)
+            *reinterpret_cast<float2*>(out + t * plane + at) =
+                make_float2(val[2 * h][t], val[2 * h + 1][t]);
+#pragma unroll
+          for (int t = 0; t < TOPJ - 1; ++t)
+            *reinterpret_cast<int2*>(out_i + t * plane + at) =
+                make_int2(static_cast<int>((idx[2 * h] >> (IDX_BITS * t)) & 31u),
+                          static_cast<int>((idx[2 * h + 1] >> (IDX_BITS * t)) & 31u));
+        }
       } else {
         float mx[SEGS][2];
 #pragma unroll
@@ -416,9 +485,9 @@ int encode(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type, int rank,
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE_BASE - static_cast<int>(r);
 }
 
-template <bool CONTIG>
-int launch(const void* q, const void* v, const float* w, float* out, int B, int N, int D,
-           int device, cudaStream_t stream) {
+template <int TOPJ, bool CONTIG>
+int launch(const void* q, const void* v, const float* w, float* out_m, int32_t* out_i, int B,
+           int N, int D, int device, cudaStream_t stream) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
   const cuuint64_t d = static_cast<cuuint64_t>(D), row = d * 2;
@@ -459,35 +528,45 @@ int launch(const void* q, const void* v, const float* w, float* out, int B, int 
   int sms = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(segmax_max_kernel<CONTIG>,
+  err = cudaFuncSetAttribute(segmax_max_kernel<TOPJ, CONTIG>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int ntiles = (N / BN) * ((B + BM - 1) / BM);
   const int grid = ntiles < sms ? ntiles : sms;
-  segmax_max_kernel<CONTIG><<<grid, THREADS, SMEM_BYTES, stream>>>(qmap, vmap, wmap, out, B, N,
-                                                                  D / BK);
+  segmax_max_kernel<TOPJ, CONTIG><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      qmap, vmap, wmap, out_m, out_i, B, N, D / BK);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// contig: 0 = B9 (strided segments, out [B, N/32]), 1 = B10 (contiguous
-// segments, out [N/32, B]). q [B, D] and v [N, D] bf16, w [N] f32, out f32,
-// all contiguous, 16-byte aligned, on `device`; N % 4096 == 0, D % 64 == 0.
-// Returns 0 once launched, a cudaError_t, or one of this library's negative
-// codes (gvdb_cuda_error_string names each).
-extern "C" int gvdb_segmax_max(int contig, int device, const void* q, const void* v,
-                               const float* w, float* out, int B, int N, int D, void* stream) {
+// contig 0, topj 4 = B1, topj 2 = B2, topj 1 = B9 (strided segments; out_m
+// [topj, B, N/32], out_i [topj-1, B, N/32], null for topj 1); contig 1, topj 1
+// = B10 (contiguous segments, out_m [N/32, B]). q [B, D] and v [N, D] bf16,
+// w [N] f32, outputs f32 / int32, all contiguous, 16-byte aligned, on
+// `device`; N % 4096 == 0, D % 64 == 0. Returns 0 once launched, a
+// cudaError_t, or one of this library's negative codes (gvdb_cuda_error_string
+// names each).
+extern "C" int gvdb_segmax_max(int contig, int topj, int device, const void* q, const void* v,
+                               const float* w, float* out_m, int32_t* out_i, int B, int N,
+                               int D, void* stream) {
   if (B <= 0 || N <= 0 || N % CB || D <= 0 || D % BK)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(v) |
        reinterpret_cast<uintptr_t>(w)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((contig && topj != 1) || (topj > 1 && out_i == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return contig ? launch<true>(q, v, w, out, B, N, D, device, s)
-                : launch<false>(q, v, w, out, B, N, D, device, s);
+  if (contig) return launch<1, true>(q, v, w, out_m, nullptr, B, N, D, device, s);
+  switch (topj) {
+    case 1: return launch<1, false>(q, v, w, out_m, nullptr, B, N, D, device, s);
+    case 2: return launch<2, false>(q, v, w, out_m, out_i, B, N, D, device, s);
+    case 4: return launch<4, false>(q, v, w, out_m, out_i, B, N, D, device, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Dynamic shared memory a block of the kernel takes, in bytes.

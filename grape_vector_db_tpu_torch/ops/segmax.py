@@ -15,10 +15,12 @@ The contiguous layout (``segmax_scores_contig``) has segment g = rows
 Phase 1 has two implementations of each contract: hand-written CUDA
 kernels, built with ``nvcc`` at first use into
 ``grape_vector_db_tpu_torch/_build/`` and called through a plain C
-interface, and the plain PyTorch versions (``*_ref``). The kernels are the
-instances of one template in ``csrc/segmax.cu``, except B9 and B10 in bf16
-storage, which run the TMA + wgmma kernel of ``csrc/segmax_max.cu``.
-Wrapper, the TPU kernel it replaces, ``LAUNCHES`` key:
+interface, and the plain PyTorch versions (``*_ref``). In bf16 storage B1,
+B2, B9 and B10 run the persistent TMA + wgmma kernel of
+``csrc/segmax_max.cu`` (one main loop, a top-4, top-2 or maximum epilogue);
+B7, B8 and every instance in f32 storage run the template of
+``csrc/segmax.cu`` (``_library`` names the source of each). Wrapper, the
+TPU kernel it replaces, ``LAUNCHES`` key:
 
 - ``segmax4_scores``: B1 ``_segmax4_kernel``, ``segmax4``;
 - ``segmax2_scores``: B2 ``_segmax2_kernel``, ``segmax2``;
@@ -94,7 +96,7 @@ def build_kernels() -> ctypes.CDLL:
 def _bind_max(lib: ctypes.CDLL) -> None:
     lib.gvdb_segmax_max.restype = ctypes.c_int
     lib.gvdb_segmax_max.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.gvdb_segmax_max_smem_bytes.restype = ctypes.c_int
     lib.gvdb_segmax_max_smem_bytes.argtypes = []
 
@@ -113,11 +115,16 @@ _INSTANCES = {(4, "plain"): ("segmax4", None), (2, "plain"): ("segmax2", None),
               (2, "selfold"): ("segmax2_selfold", 2), (4, "sup"): ("segmax4_sup", 3)}
 
 
-def _library(topj: int, dtype: torch.dtype) -> str:
-    """The source whose kernel an instance launches: the segment maxima (B9,
-    B10) in bf16 storage run ``segmax_max``; every other instance, f32
-    storage included, runs the ``segmax`` template."""
-    return "segmax_max" if topj == 1 and dtype == torch.bfloat16 else "segmax"
+#: the instances that run ``csrc/segmax_max.cu`` in bf16 storage: B9, B10, B2, B1
+_MAX_INSTANCES = frozenset({(1, "plain"), (1, "contig"), (2, "plain"), (4, "plain")})
+
+
+def _library(instance: Tuple[int, str], dtype: torch.dtype) -> str:
+    """The source whose kernel an instance ((top-j, variant), a key of
+    ``_INSTANCES``) launches: B1, B2, B9 and B10 in bf16 storage run
+    ``segmax_max``; B7, B8 and every instance in f32 storage run the
+    ``segmax`` template."""
+    return "segmax_max" if dtype == torch.bfloat16 and instance in _MAX_INSTANCES else "segmax"
 
 
 def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
@@ -144,7 +151,7 @@ def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
     wc = w.to(torch.float32).contiguous()
     if not vectors.is_contiguous():
         raise ValueError(f"{name}: vectors must be contiguous")
-    library = _library(topj, vectors.dtype)
+    library = _library((topj, variant), vectors.dtype)
     # the template loads q and vectors 16 bytes at a time; TMA also reads w
     for t in (qc, vectors, wc) if library == "segmax_max" else (qc, vectors):
         if t.data_ptr() % 16:
@@ -157,9 +164,9 @@ def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (_DTYPE_CODE[vectors.dtype], dev.index or 0, qc.data_ptr(), vectors.data_ptr(),
             wc.data_ptr(), vals.data_ptr(), idxs.data_ptr())
-    if library == "segmax_max":        # code: 0 strided, 1 contig; bf16 only
+    if library == "segmax_max":        # bf16 only
         lib = build_max_kernel()
-        rc = lib.gvdb_segmax_max(code, *args[1:6], b, n, d, stream)
+        rc = lib.gvdb_segmax_max(int(variant == "contig"), topj, *args[1:], b, n, d, stream)
     else:
         lib = build_kernels()
         rc = (lib.gvdb_segmax(topj, *args, b, n, d, stream) if code is None

@@ -105,46 +105,91 @@ def _gaussian_segments(cuda, layout, b, d, n):
     return q, v, w
 
 
+# top-j of the strided instances on csrc/segmax_max.cu in bf16 storage:
+# wrapper, plain version, LAUNCHES key (B9, B2, B1)
+STRIDED_TOPJ = {
+    1: (tseg.segmax_scores, tseg.segmax_scores_ref, "segmax"),
+    2: (tseg.segmax2_scores, tseg.segmax2_scores_ref, "segmax2"),
+    4: (tseg.segmax4_scores, tseg.segmax4_scores_ref, "segmax4"),
+}
+
+
+def _values_then_members(topj, planes):
+    """A wrapper's planes as ([value planes, rank 1 first], [member planes])."""
+    planes = _planes(planes)
+    if topj == 2:                                       # (m1, i1, m2)
+        return [planes[0], planes[2]], [planes[1]]
+    return list(planes[:topj]), list(planes[topj:])
+
+
+def _check_topj_planes(topj, got, want, tol=3e-3):
+    """-inf where the plain version has it, values within tol, and member
+    indices equal wherever both neighbouring rank gaps exceed tol (near ties
+    may take either member)."""
+    gv, gi = _values_then_members(topj, got)
+    wv, wi = _values_then_members(topj, want)
+    vals, ref = torch.stack(gv), torch.stack(wv)
+    assert vals.shape == ref.shape
+    assert torch.equal(torch.isneginf(vals), torch.isneginf(ref))
+    fin = torch.isfinite(ref)
+    assert fin.any() and (vals - ref)[fin].abs().max().item() <= tol
+    for t, (a, b) in enumerate(zip(gi, wi)):
+        prev = ref[t - 1] if t else torch.full_like(ref[0], float("inf"))
+        sure = torch.minimum(prev - ref[t], ref[t] - ref[t + 1]).nan_to_num(0.0) > tol
+        assert a.dtype == b.dtype == torch.int32
+        assert torch.equal(a[sure], b[sure])
+    return vals
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [4096, 8192, 12288])
 @pytest.mark.parametrize("d", [128, 384, 768, 1536])
 @pytest.mark.parametrize("b", [1, 40, 64, 65, 128, 200, 256])
-@pytest.mark.parametrize("layout", ["strided", "contig"])
-def test_segmax_max_kernel_matches_plain(cuda, layout, b, d, n):
-    """B9/B10 in bf16 storage (csrc/segmax_max.cu, TMA + wgmma) on Gaussian
-    rows: -inf exactly where the plain version has it (the all-invalid first
-    tile and segment 13 among them), values within 3e-3 (bf16 operands, f32
-    sums in another order); one launch."""
-    key = "segmax" if layout == "strided" else "segmax_contig"
-    kern, plain = VARIANTS[key]
+@pytest.mark.parametrize("layout,topj", [("strided", 1), ("strided", 2), ("strided", 4),
+                                         ("contig", 1)])
+def test_segmax_max_kernel_matches_plain(cuda, layout, topj, b, d, n):
+    """B9/B10, and B2/B1 (strided top-2 / top-4), in bf16 storage
+    (csrc/segmax_max.cu, TMA + wgmma) on Gaussian rows: -inf exactly where
+    the plain version has it (the all-invalid first tile and segment 13
+    among them), values within 3e-3 (bf16 operands, f32 sums in another
+    order), member indices equal away from near ties; one launch."""
+    if layout == "contig":
+        kern, plain = VARIANTS["segmax_contig"]
+        key = "segmax_contig"
+    else:
+        kern, plain, key = STRIDED_TOPJ[topj]
     q, v, w = _gaussian_segments(cuda, layout, b, d, n)
     before = tseg.LAUNCHES[key]
     got = kern(q, v, w)
     torch.cuda.synchronize()
     assert tseg.LAUNCHES[key] == before + 1
     want = plain(q, v, w)
-    assert got.shape == want.shape
-    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
-    planes = got if layout == "strided" else got.T          # [B, N/32]
-    assert torch.isneginf(planes[:, :8]).all() and torch.isneginf(planes[:, 13]).all()
-    fin = torch.isfinite(want)
-    assert fin.any() and (got - want)[fin].abs().max().item() <= 3e-3
+    if layout == "contig":
+        got, want = got.T, want.T                       # [B, N/32]
+    vals = _check_topj_planes(topj, got, want)
+    assert torch.isneginf(vals[:, :, :8]).all() and torch.isneginf(vals[:, :, 13]).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 130, 256])
-@pytest.mark.parametrize("layout", ["strided", "contig"])
-def test_segmax_max_kernel_integer_case_is_exact(cuda, layout, b):
-    """On the integer case every sum is exact, so B9/B10 in bf16 storage
-    equal their plain versions bit for bit, across one, two and full query
-    tiles."""
-    key = "segmax" if layout == "strided" else "segmax_contig"
-    kern, plain = VARIANTS[key]
+@pytest.mark.parametrize("layout,topj", [("strided", 1), ("strided", 2), ("strided", 4),
+                                         ("contig", 1)])
+def test_segmax_max_kernel_integer_case_is_exact(cuda, layout, topj, b):
+    """On the integer case every sum is exact, so B9/B10 and B2/B1 in bf16
+    storage equal their plain versions bit for bit, member indices and ties
+    included, across one, two and full query tiles."""
+    if layout == "contig":
+        kern, plain = VARIANTS["segmax_contig"]
+    else:
+        kern, plain, _ = STRIDED_TOPJ[topj]
     v, q, w = _integer_case(b=b)
     v, q, w = v.to(cuda).to(torch.bfloat16), q.to(cuda), w.to(cuda)
-    got = kern(q, v, w)
+    got = _planes(kern(q, v, w))
     torch.cuda.synchronize()
-    assert torch.equal(got, plain(q, v, w))
+    want = _planes(plain(q, v, w))
+    assert len(got) == len(want)
+    for a, p in zip(got, want):
+        assert a.dtype == p.dtype and torch.equal(a, p)
 
 
 @pytest.mark.cuda
@@ -167,6 +212,71 @@ def test_segmax_max_runs_bf16_only_and_never_falls_back(cuda, monkeypatch):
     shifted = torch.ones(w.shape[0] + 1, device=cuda)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         tseg.segmax_scores(q, v.to(torch.bfloat16), shifted)
+
+
+class _FailingLaunch:
+    """A stand-in library whose every launch returns cudaErrorLaunchFailure."""
+
+    def gvdb_segmax_max(self, *args):
+        return 719
+
+    def gvdb_cuda_error_string(self, code):
+        return b"unspecified launch failure"
+
+
+@pytest.mark.cuda
+def test_segmax_topj_bf16_runs_the_tma_kernel_and_never_falls_back(cuda, monkeypatch):
+    """B1 and B2 in f32 storage launch the csrc/segmax.cu template even when
+    the TMA + wgmma library cannot be had, and in bf16 storage they then
+    raise; with the template withheld, bf16 still runs (csrc/segmax_max.cu)
+    and f32 raises; the template's C entry refuses bf16 outright; and a
+    launch that fails, or a w that TMA cannot read, raises without counting
+    a launch."""
+    v, q, w = _integer_case()
+    v, q, w = v.to(cuda), q.to(cuda), w.to(cuda)
+    vb = v.to(torch.bfloat16)
+    b1b2 = [STRIDED_TOPJ[4], STRIDED_TOPJ[2]]
+
+    def refuse():
+        raise RuntimeError("library withheld")
+
+    monkeypatch.setattr(tseg, "build_max_kernel", refuse)
+    for kern, plain, key in b1b2:
+        before = tseg.LAUNCHES[key]
+        for a, p in zip(kern(q, v, w), plain(q, v, w)):
+            assert torch.equal(a, p)
+        assert tseg.LAUNCHES[key] == before + 1
+        with pytest.raises(RuntimeError, match="withheld"):
+            kern(q, vb, w)
+    monkeypatch.undo()
+    monkeypatch.setattr(tseg, "build_kernels", refuse)
+    for kern, plain, key in b1b2:
+        for a, p in zip(kern(q, vb, w), plain(q, vb, w)):
+            assert torch.equal(a, p)
+        with pytest.raises(RuntimeError, match="withheld"):
+            kern(q, v, w)
+    monkeypatch.undo()
+
+    lib = tseg.build_kernels()
+    b, n, d = q.shape[0], v.shape[0], v.shape[1]
+    qb = q.to(torch.bfloat16)
+    for topj in (4, 2):
+        vals = torch.empty((topj, b, n // tseg.SEG), device=cuda)
+        idxs = torch.empty((topj - 1, b, n // tseg.SEG), dtype=torch.int32, device=cuda)
+        rc = lib.gvdb_segmax(topj, 0, cuda.index or 0, qb.data_ptr(), vb.data_ptr(),
+                             w.data_ptr(), vals.data_ptr(), idxs.data_ptr(), b, n, d,
+                             torch.cuda.current_stream().cuda_stream)
+        assert rc == 1                                  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(tseg, "build_max_kernel", lambda: _FailingLaunch())
+    shifted = torch.ones(w.shape[0] + 1, device=cuda)[1:]
+    for kern, _, key in b1b2:
+        before = tseg.LAUNCHES[key]
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kern(q, vb, w)
+        with pytest.raises(ValueError, match="16-byte"):    # TMA reads w too
+            kern(q, vb, shifted)
+        assert tseg.LAUNCHES[key] == before
 
 
 ENTRY_POINTS = {
