@@ -19,9 +19,10 @@ the port's paths through ``VectorDatabase`` on the card:
   B=128): ``segmax_topk`` with both layouts (B9, B10), ``segmax4_topk(impl=
   "sup")`` (B7) and ``segmax2_topk(impl="selfold")`` (B8), at k = 10, k = 3
   and filtered, against the exact one-matmul oracle on the card, after each
-  of B7-B10 is held against its plain version (B9 and B10 in bf16 storage
-  run the TMA + wgmma kernel of ``csrc/segmax_max.cu``, in f32 storage the
-  ``csrc/segmax.cu`` template, as B7 and B8 do in both);
+  of B7-B10 is held against its plain version (in bf16 storage all four run
+  the TMA + wgmma kernel of ``csrc/segmax_max.cu``, in f32 storage the
+  ``csrc/segmax.cu`` template); B7 and B8 are timed in turns with B1 and B2
+  and with their library compositions, at B = 128 and B = 256;
 - the IVF family at the repository's 1M IVF configuration (bench.py:483-506:
   1,048,576 x 768 clustered rows, 16,384 Gaussian centres + 0.25 noise,
   nlist 4096, nprobe 16): ``ivf`` runs B3, ``ivf_int8`` B4 and ``ivf_int4``
@@ -117,15 +118,15 @@ KERNELS = {
                 "grape_vector_db_tpu/ops/segmax_pallas.py:354"),
     "segmax2": ("grape_vector_db_tpu_torch/csrc/segmax_max.cu",
                 "grape_vector_db_tpu/ops/segmax_pallas.py:124"),
-    # B9, B10, B7, B8: the segment-max entry points' kernels; B9 and B10 in
-    # bf16 storage (the main path's) run the TMA + wgmma kernel
+    # B9, B10, B7, B8: the segment-max entry points' kernels; in bf16 storage
+    # (the main path's) all four run the TMA + wgmma kernel
     "segmax": ("grape_vector_db_tpu_torch/csrc/segmax_max.cu",
                "grape_vector_db_tpu/ops/segmax_pallas.py:53"),
     "segmax_contig": ("grape_vector_db_tpu_torch/csrc/segmax_max.cu",
                       "grape_vector_db_tpu/ops/segmax_pallas.py:728"),
-    "segmax4_sup": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
+    "segmax4_sup": ("grape_vector_db_tpu_torch/csrc/segmax_max.cu",
                     "grape_vector_db_tpu/ops/segmax_pallas.py:401"),
-    "segmax2_selfold": ("grape_vector_db_tpu_torch/csrc/segmax.cu",
+    "segmax2_selfold": ("grape_vector_db_tpu_torch/csrc/segmax_max.cu",
                         "grape_vector_db_tpu/ops/segmax_pallas.py:237"),
     "ivf_probe": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
                   "grape_vector_db_tpu/ops/ivf_pallas.py:155"),
@@ -192,24 +193,25 @@ def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S) -> dict:
 def ptxas_summary(build_log: str):
     """One line per compiled kernel from nvcc's -Xptxas -v output."""
     fmts = {"0": "bf16", "1": "f32", "2": "int8", "3": "int4"}
-    # segmax_kernel<TOPJ, T, VARIANT> -> the LAUNCHES key of the instance
+    # segmax_max_kernel<TOPJ, VARIANT> and segmax_kernel<TOPJ, VARIANT> -> the
+    # LAUNCHES key of the instance
     segmax_names = {("4", "0"): "segmax4", ("2", "0"): "segmax2", ("1", "0"): "segmax",
                     ("1", "1"): "segmax_contig", ("2", "2"): "segmax2_selfold",
                     ("4", "3"): "segmax4_sup"}
-    # segmax_max_kernel<TOPJ, CONTIG> -> the LAUNCHES key of the instance
-    max_names = {("1", "0"): "segmax", ("1", "1"): "segmax_contig", ("2", "0"): "segmax2",
-                 ("4", "0"): "segmax4"}
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
-        mx = re.search(r"Compiling entry function '.*segmax_max_kernelILi(\d)ELb(\d)E", line)
-        m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)E(\w+?)Li(\d)EEEv", line)
+        mx = re.search(r"Compiling entry function '.*segmax_max_kernelILi(\d)ELi(\d)EE", line)
+        m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)ELi(\d)EE", line)
         p = re.search(r"Compiling entry function '.*probe_kernelILi(\d)E+v", line)
+        f = re.search(r"Compiling entry function '.*fill_kernel", line)
         h = re.search(r"Compiling entry function '.*hamming_kernel", line)
         g = re.search(r"Compiling entry function '.*gather_dots_kernelILi(\d)ELb(\d)E", line)
         if mx:
-            name = f"{max_names[mx[1], mx[2]]}<bf16, TMA + wgmma>"
+            name = f"{segmax_names[mx[1], mx[2]]}<bf16, TMA + wgmma>"
         elif m:
-            name = f"{segmax_names[m[1], m[3]]}<{'bf16' if 'bfloat16' in m[2] else 'f32'}>"
+            name = f"{segmax_names[m[1], m[2]]}<f32>"
+        elif f:
+            name = "fill_kernel (segmax4_sup's -inf start)"
         elif p:
             name = f"ivf_probe<{fmts[p[1]]}>"
         elif h:
@@ -512,7 +514,7 @@ def segmax_variants_phase():
         diff = (selfold(qi, vt, wi)[1] != segmax.segmax2_scores(qi, vt, wi)[1]).sum().item()
         require(diff > 0, "segmax2_selfold: i1 equals B2's everywhere on the tie case")
         log(f"[kernels] segmax, segmax_contig, segmax4_sup, segmax2_selfold {dtype} adversarial "
-            f"(B=40; B9/B10 from csrc/{segmax._library((1, 'plain'), dtype)}.cu): every plane equal; "
+            f"(B=40; csrc/{segmax._library((1, 'plain'), dtype)}.cu): every plane equal; "
             f"selfold's i1 differs from B2's at {diff} ties")
 
     # the entry points: this phase's main path, each call one launch of its kernel
@@ -606,6 +608,57 @@ def segmax_variants_phase():
             log(f"[times] {name} B={len(qb)}: library composition (torch.mm out_dtype=f32, "
                 f"multiply, where, amax: 4 calls) {l1:.4f} / {l2:.4f} ms, in turns with the "
                 f"kernel {k1:.4f} / {k2:.4f} ms")
+
+    # B7 and B8 in turns with B1 / B2 (the same main loop, another epilogue)
+    # and with the nearest library composition of each: B1's / B2's four
+    # calls, then amax over each block's segments (B7), or the members
+    # permuted into bit-reversed order before topk (B8: the same values; its
+    # i1 may differ from B8's on ties, as topk does not promise an order)
+    order = torch.tensor(segmax._SELFOLD_ORDER, device=v.device)
+
+    def lib_scores(qb):
+        s = torch.mm(qb.to(torch.bfloat16), v.T, out_dtype=torch.float32)
+        s = torch.where(w[None, :] == 0, float("-inf"), s * w[None, :])
+        return s.view(len(qb), nblk, 32, 128).transpose(2, 3)
+
+    def lib_sup(qb):
+        top = torch.topk(lib_scores(qb), 4, dim=3)
+        return top.values, top.values[..., :2].amax(dim=2)
+
+    def lib_selfold(qb):
+        return torch.topk(lib_scores(qb)[..., order], 2, dim=3).values, None
+
+    twins = {"segmax4_sup": (segmax.segmax4_sup_scores, segmax.segmax4_scores, lib_sup, "B1"),
+             "segmax2_selfold": (selfold, segmax.segmax2_scores, lib_selfold, "B2")}
+    for qb in (q, q256):
+        for name, (kern, twin, fn, twin_name) in twins.items():
+            got = kern(qb, v, w)
+            lib_vals, lib_sup_vals = fn(qb)
+            planes = got[:4] if name == "segmax4_sup" else (got[0], got[2])
+            vals = torch.stack(planes, dim=2).view(lib_vals.shape)
+            fin = torch.isfinite(vals)
+            ok = (torch.equal(fin, torch.isfinite(lib_vals))
+                  and (lib_vals - vals)[fin].abs().max().item() <= TOL)
+            if lib_sup_vals is not None:
+                sup = torch.stack(got[7:9], dim=2)
+                fin = torch.isfinite(sup)
+                ok = ok and (torch.equal(fin, torch.isfinite(lib_sup_vals))
+                             and (lib_sup_vals - sup)[fin].abs().max().item() <= TOL)
+            require(ok, f"{name}: the library composition computes another function")
+            del got, lib_vals, lib_sup_vals, vals, planes
+            (k1, k2), (t1, t2) = in_turns(lambda: kern(qb, v, w), lambda: twin(qb, v, w), 10, 10)
+            (k3, k4), (l1, l2) = in_turns(lambda: kern(qb, v, w), lambda: fn(qb), 10, 10)
+            if qb is q:
+                out[name]["library_ms"] = (l1 + l2) / 2
+            written = kernels[name][3] * len(qb) // BATCH
+            bnd = bound(N_ROWS * DIM * 2 + N_ROWS * 4 + len(qb) * DIM * 2 + written,
+                        2.0 * len(qb) * N_ROWS * DIM)["bound_ms"]
+            log(f"[times] {name} B={len(qb)}: kernel {k1:.4f} / {k2:.4f} ms (bound "
+                f"{bnd:.4f} ms) in turns with {twin_name} {t1:.4f} / {t2:.4f} ms; library "
+                f"composition (torch.mm "
+                f"out_dtype=f32, multiply, where, "
+                f"{'topk(4), amax' if name == 'segmax4_sup' else 'index, topk(2)'}: 5 calls) "
+                f"{l1:.4f} / {l2:.4f} ms, in turns with the kernel {k3:.4f} / {k4:.4f} ms")
     del q256
 
     m1, _, _, _, _, _, _, s1, _ = segmax.segmax4_sup_scores(q, v, w)
@@ -620,9 +673,20 @@ def segmax_variants_phase():
         log(f"[times] sup selection k={kk} over m1 [{BATCH},{nseg}]: two-level from s1 "
             f"{t1:.4f} / {t2:.4f} ms, torch.topk on the full plane {f1:.4f} / {f2:.4f} ms")
     for name, (label, fn, kw) in SEGMAX_ENTRY.items():
-        ms = cuda_ms(lambda: getattr(segmax, fn)(queries, v, norms, valid, k=10, **kw), 10)
+        def call():
+            return getattr(segmax, fn)(queries, v, norms, valid, k=10, **kw)
+
+        ms = cuda_ms(call, 10)
+        # the host's clock over issuing 10 calls (no call waits on the card):
+        # near the card's time, the host's launches bound the entry point
+        t0 = time.perf_counter()
+        for _ in range(10):
+            call()
+        issue_ms = (time.perf_counter() - t0) * 100
+        torch.cuda.synchronize()
         log(f"[times] {label} k=10 B={BATCH} at {N_ROWS} x {DIM}: {ms:.4f} ms on the card "
-            f"(phase 1 {out[name]['ms']:.4f} ms of it)")
+            f"(phase 1 {out[name]['ms']:.4f} ms of it); the host issues a call in "
+            f"{issue_ms:.4f} ms")
     del v, valid, w, q, norms
     log(f"[time] segmax variants phase {time.perf_counter() - t_phase:.1f} s")
     return out, launches

@@ -6,14 +6,15 @@ imports ``torch`` and numpy and never JAX. Device arrays live on an explicit
 ``device`` (default ``"cuda"``); the CPU tests pass ``device="cpu"``.
 
 Ported so far: ``VectorDatabase`` over the memory store with every
-single-chip index kind but ``graph``: the exact flat index, whose
-large-corpus search runs the hand-written segment top-k CUDA kernels
-(``ops/segmax.py``, ``csrc/segmax.cu``); the two-stage binary, int8 and PQ
-flat kinds, whose binary popcount route runs the Hamming kernel
-(``ops/hamming.py``, ``csrc/hamming.cu``); and the IVF family (bf16, int8,
-int4, PQ and the projected int8/int4 kinds), whose probes run the ragged
-probe kernels (``ops/ivf.py``, ``csrc/ivf_probe.cu``). ROADMAP.md lists what
-is still to be ported.
+single-chip index kind: the exact flat index, whose large-corpus search
+runs the hand-written segment top-k CUDA kernels (``ops/segmax.py``;
+``csrc/segmax_max.cu`` in bf16 storage, ``csrc/segmax.cu`` in f32); the
+two-stage binary, int8 and PQ flat kinds, whose binary popcount route runs
+the Hamming kernel (``ops/hamming.py``, ``csrc/hamming.cu``); the IVF family
+(bf16, int8, int4, PQ and the projected int8/int4 kinds), whose probes run
+the ragged probe kernels (``ops/ivf.py``, ``csrc/ivf_probe.cu``); and graph
+search, whose build and beam run the gather-dot kernel (``ops/graph.py``,
+``csrc/gather.cu``). ROADMAP.md lists what is still to be ported.
 """
 
 from grape_vector_db_tpu_torch.config import VectorDbConfig, load_config

@@ -1,22 +1,23 @@
-// Segment top-j kernels for the exact large-corpus flat search (Hopper, sm_90a).
+// Segment top-j kernels for the exact large-corpus flat search in f32 storage
+// (Hopper, sm_90a).
 //
 // One template, six instances, each replacing a Pallas TPU kernel of
 // grape_vector_db_tpu/ops/segmax_pallas.py:
-//   <4, F, PLAIN>   B1  _segmax4_kernel (fold _segmax4_core), segmax4_scores_pallas
-//   <2, F, PLAIN>   B2  _segmax2_kernel ("eqfold"),           segmax2_scores_pallas
-//   <1, F, PLAIN>   B9  _segmax_kernel (maxima only),         segmax_scores_pallas
-//   <1, F, CONTIG>  B10 _segmax_kernel_contig,                segmax_scores_pallas_contig
-//   <2, T, SELFOLD> B8  _segmax2_kernel_selfold,              segmax2_scores_pallas(impl="selfold")
-//   <4, T, SUP>     B7  _segmax4_sup_kernel,                  segmax4_sup_scores_pallas
-// (T: bf16 or f32 storage; F: f32 storage only, since B1, B2, B9 and B10 in
-// bf16 storage run the TMA + wgmma kernel of csrc/segmax_max.cu, and the C
-// entries here refuse them in bf16). It is bound to PyTorch through a plain C
-// interface (ctypes) by grape_vector_db_tpu_torch/ops/segmax.py, which also
-// holds the plain PyTorch version of every instance's contract.
+//   <4, PLAIN>   B1  _segmax4_kernel (fold _segmax4_core), segmax4_scores_pallas
+//   <2, PLAIN>   B2  _segmax2_kernel ("eqfold"),           segmax2_scores_pallas
+//   <1, PLAIN>   B9  _segmax_kernel (maxima only),         segmax_scores_pallas
+//   <1, CONTIG>  B10 _segmax_kernel_contig,                segmax_scores_pallas_contig
+//   <2, SELFOLD> B8  _segmax2_kernel_selfold,              segmax2_scores_pallas(impl="selfold")
+//   <4, SUP>     B7  _segmax4_sup_kernel,                  segmax4_sup_scores_pallas
+// All six take f32 storage only: in bf16 storage every instance runs the TMA +
+// wgmma kernel of csrc/segmax_max.cu, and the C entries here refuse bf16. The
+// products are full-f32 FMA (the port keeps TF32 off). It is bound to PyTorch
+// through a plain C interface (ctypes) by grape_vector_db_tpu_torch/ops/segmax.py,
+// which also holds the plain PyTorch version of every instance's contract.
 //
 // Contract. For query b and corpus row r:
-//   s[b, r] = dot(q[b], v[r]) * w[r]   (f32 accumulation; q already in the
-//             storage type), and s = -inf where w[r] == 0 (select, not add).
+//   s[b, r] = dot(q[b], v[r]) * w[r]   (f32 accumulation), and s = -inf
+//             where w[r] == 0 (select, not add).
 // Segments are strided and block-major: segment g = blk * 128 + j holds rows
 // blk * 4096 + j + 128 * m for members m < 32 (CONTIG: rows 32 * g + m, so
 // chunk m of a block is rows blk * 4096 + 32 * j + m). Per (b, g) the kernel
@@ -30,41 +31,33 @@
 // [N/32, B]. SUP also writes s[0 / 1][b][blk], the maxima of the block's 128
 // rank-1 / rank-2 values.
 //
-// What bounds it on an H100. At B = 128 and a 1,048,576 x 768 bf16 corpus the
-// corpus read is 1.6 GB (about 0.5 ms at 3.35 TB/s) and the products are
-// 2 * 128 * 1M * 768 = 0.2 TFLOP: a few ms on CUDA-core FMA, a fraction of a
-// ms on the tensor cores. The [B, N] score plane (512 MB) is the traffic the
-// fusion removes: it never leaves the SM, only the 32x smaller top-j planes
-// are written.
+// What bounds it on an H100. At B = 128 and a 1,048,576 x 768 f32 corpus the
+// corpus read is 3.2 GB (about 1 ms at 3.35 TB/s) and the products are
+// 2 * 128 * 1M * 768 = 0.2 TFLOP, about 3 ms at the 67 TFLOP/s of f32 FMA
+// outside the tensor cores: in full f32 it is bound by operations. The
+// [B, N] score plane (512 MB) is the traffic the fusion removes: it never
+// leaves the SM, only the 32x smaller top-j planes are written.
 //
 // Design. One thread block takes 32 queries x one 4096-row corpus block. The
 // 32 members of the block's 128 segments are 32 128-row chunks (member m of
-// segment j is row 128 * m + j), so the block walks m = 0..31,
-// computes the [32 x 128] score tile of chunk m with K-tiles staged in shared
-// memory (bf16: mma.sync m16n8k16 with f32 accumulation; f32 storage: FMA in
-// full f32), and folds each score into a per-(query, segment) top-j list kept
-// in registers (values, plus the member indices packed into one word).
-// A stable insertion places a new score below equal ones already listed, so
-// the order in which members arrive is the tie rule: ascending m gives
-// (score desc, m asc); SELFOLD walks the chunks in bit-reversed order, so the
-// member with the smallest bit-reversed index wins a tie. The tile layout is
-// the mma accumulator layout, so the two storage types share the epilogue.
-// SUP's block maxima are one more epilogue: a max over each thread's
-// segments, a shuffle across the 4 lanes that share a query, and shared
-// memory across the 4 warps along segments; each (query tile, block) pair
-// has one thread block, so no atomics are needed.
-// Blocks for the same corpus block are adjacent in the grid (queries on x),
-// so the extra query tiles at B > 32 mostly re-read the corpus from L2.
-// As written the kernel reaches neither bound: a block stages each K-tile
-// with plain loads between two barriers, so it waits on memory; two blocks
-// per SM (bf16, 128 registers) hide part of that wait. B1, B2, B9 and B10 in
-// bf16 storage have moved onto the TMA ring, wgmma and persistent grid of
-// csrc/segmax_max.cu, whose tiles hold whole segments; later work moves B7
-// and B8 there too (B8: the same top-2 epilogue with the members walked in
-// bit-reversed order; B7: the block maxima across a block's 16 tiles, which
-// land on different SMs).
+// segment j is row 128 * m + j), so the block walks m = 0..31, computes the
+// [32 x 128] score tile of chunk m with K-tiles staged in shared memory (FMA
+// in full f32, in the layout of an mma accumulator), and folds each score
+// into a per-(query, segment) top-j list kept in registers (values, plus the
+// member indices packed into one word). A stable insertion places a new
+// score below equal ones already listed, so the order in which members
+// arrive is the tie rule: ascending m gives (score desc, m asc); SELFOLD
+// walks the chunks in bit-reversed order, so the member with the smallest
+// bit-reversed index wins a tie. SUP's block maxima are one more epilogue: a
+// max over each thread's segments, a shuffle across the 4 lanes that share a
+// query, and shared memory across the 4 warps along segments; each (query
+// tile, block) pair has one thread block, so no atomics are needed. Blocks
+// for the same corpus block are adjacent in the grid (queries on x), so the
+// extra query tiles at B > 32 mostly re-read the corpus from L2. A block
+// stages each K-tile with plain loads between two barriers, so it also waits
+// on memory; bf16 storage, the port's default, moved to the TMA ring,
+// wgmma and persistent grid of csrc/segmax_max.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -76,85 +69,32 @@ constexpr int SPB = 128;       // segments per corpus block
 constexpr int CB = SEG * SPB;  // rows per corpus block
 constexpr int BQ = 32;         // queries per thread block
 constexpr int THREADS = 256;   // 8 warps: 2 along queries x 4 along segments
-constexpr int TILE_BYTES = 256;  // bytes of each row staged per K-tile
+constexpr int KT = 64;         // K-tile width: 256 bytes of each row
+constexpr int LD = KT + 4;     // 16-byte row pad: no bank conflicts
+constexpr int VEC = 4;         // elements per 16-byte load
+constexpr int VECS_PER_ROW = KT / VEC;
 
-template <typename T>
-struct Tile {
-  static constexpr int KT = TILE_BYTES / sizeof(T);  // K-tile width
-  static constexpr int PAD = 16 / sizeof(T);         // 16 B row pad: no bank conflicts
-  static constexpr int LD = KT + PAD;
-  static constexpr int VEC = 16 / sizeof(T);         // elements per 16-byte load
-  static constexpr int VECS_PER_ROW = KT / VEC;
-  // bf16: cap registers at 128 a thread so two blocks share an SM (the
-  // kernel waits on its tile loads, and a second block hides that wait);
-  // the f32 path needs more registers for its FMA tile and keeps one.
-  static constexpr int MIN_BLOCKS = sizeof(T) == 2 ? 2 : 1;
-};
-
-__device__ __forceinline__ void mma_bf16_16x8x16(float (&c)[4], uint32_t a0, uint32_t a1,
-                                                 uint32_t a2, uint32_t a3, uint32_t b0,
-                                                 uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// The [32 x 128] tile product of one K-tile. Thread (warp, lane) owns the
-// mma accumulator positions: query rows qa = wq*16 + g and qa + 8, segment
-// columns wj*32 + nt*8 + 2*t4 + {0, 1} for nt < 4.
-template <typename T>
-struct TileProduct;
-
-template <>
-struct TileProduct<__nv_bfloat16> {
-  using Cfg = Tile<__nv_bfloat16>;
-  __device__ __forceinline__ static void run(__nv_bfloat16 (*sq)[Cfg::LD],
-                                             __nv_bfloat16 (*sv)[Cfg::LD], int qa, int nb,
-                                             int g, int t4, float (&acc)[4][4]) {
-#pragma unroll
-    for (int kk = 0; kk < Cfg::KT; kk += 16) {
-      const int k = kk + 2 * t4;
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(&sq[qa][k]);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(&sq[qa + 8][k]);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(&sq[qa][k + 8]);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(&sq[qa + 8][k + 8]);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = nb + nt * 8 + g;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&sv[n][k]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&sv[n][k + 8]);
-        mma_bf16_16x8x16(acc[nt], a0, a1, a2, a3, b0, b1);
-      }
-    }
-  }
-};
-
-template <>
-struct TileProduct<float> {
-  using Cfg = Tile<float>;
-  __device__ __forceinline__ static void run(float (*sq)[Cfg::LD],
-                                             float (*sv)[Cfg::LD], int qa, int nb,
-                                             int g, int t4, float (&acc)[4][4]) {
-    (void)g;
+// The [32 x 128] tile product of one K-tile in full f32. Thread (warp, lane)
+// owns the mma accumulator positions: query rows qa = wq*16 + g and qa + 8,
+// segment columns nb + nt*8 + 2*t4 + {0, 1} for nt < 4.
+__device__ __forceinline__ void tile_product(float (*sq)[LD], float (*sv)[LD], int qa, int nb,
+                                             int t4, float (&acc)[4][4]) {
 #pragma unroll 8
-    for (int k = 0; k < Cfg::KT; ++k) {
-      const float xa = sq[qa][k];
-      const float xb = sq[qa + 8][k];
+  for (int k = 0; k < KT; ++k) {
+    const float xa = sq[qa][k];
+    const float xb = sq[qa + 8][k];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = nb + nt * 8 + 2 * t4;
-        const float y0 = sv[n][k];
-        const float y1 = sv[n + 1][k];
-        acc[nt][0] = fmaf(xa, y0, acc[nt][0]);
-        acc[nt][1] = fmaf(xa, y1, acc[nt][1]);
-        acc[nt][2] = fmaf(xb, y0, acc[nt][2]);
-        acc[nt][3] = fmaf(xb, y1, acc[nt][3]);
-      }
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = nb + nt * 8 + 2 * t4;
+      const float y0 = sv[n][k];
+      const float y1 = sv[n + 1][k];
+      acc[nt][0] = fmaf(xa, y0, acc[nt][0]);
+      acc[nt][1] = fmaf(xa, y1, acc[nt][1]);
+      acc[nt][2] = fmaf(xb, y0, acc[nt][2]);
+      acc[nt][3] = fmaf(xb, y1, acc[nt][3]);
     }
   }
-};
+}
 
 // Member indices of ranks 1 .. TOPJ-1 live packed in one word, IDX_BITS each
 // (m < 32): a (query, segment) list then costs TOPJ + 1 registers, not 2 * TOPJ.
@@ -190,14 +130,13 @@ __device__ __forceinline__ void insert(float (&val)[TOPJ], uint32_t& idx, float 
 // The walk and the outputs of one instance (see the header).
 enum Variant { PLAIN = 0, CONTIG = 1, SELFOLD = 2, SUP = 3 };
 
-template <int TOPJ, typename T, int VAR>
-__global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
-segmax_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ w,
-              float* __restrict__ out_m, int32_t* __restrict__ out_i, float* __restrict__ out_s,
-              int B, int N, int D) {
-  using Cfg = Tile<T>;
-  __shared__ __align__(16) T sq[BQ][Cfg::LD];
-  __shared__ __align__(16) T sv[SPB][Cfg::LD];
+template <int TOPJ, int VAR>
+__global__ void __launch_bounds__(THREADS, 1)
+segmax_kernel(const float* __restrict__ q, const float* __restrict__ v,
+              const float* __restrict__ w, float* __restrict__ out_m,
+              int32_t* __restrict__ out_i, float* __restrict__ out_s, int B, int N, int D) {
+  __shared__ __align__(16) float sq[BQ][LD];
+  __shared__ __align__(16) float sv[SPB][LD];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -230,21 +169,21 @@ segmax_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
     }
-    for (int k0 = 0; k0 < D; k0 += Cfg::KT) {
+    for (int k0 = 0; k0 < D; k0 += KT) {
       __syncthreads();  // the previous K-tile has been consumed
-      for (int i = tid; i < BQ * Cfg::VECS_PER_ROW; i += THREADS) {
-        const int r = i / Cfg::VECS_PER_ROW, cv = (i % Cfg::VECS_PER_ROW) * Cfg::VEC;
+      for (int i = tid; i < BQ * VECS_PER_ROW; i += THREADS) {
+        const int r = i / VECS_PER_ROW, cv = (i % VECS_PER_ROW) * VEC;
         uint4 x = make_uint4(0u, 0u, 0u, 0u);
         if (q0 + r < B) x = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * D + k0 + cv);
         *reinterpret_cast<uint4*>(&sq[r][cv]) = x;
       }
-      for (int i = tid; i < SPB * Cfg::VECS_PER_ROW; i += THREADS) {
-        const int r = i / Cfg::VECS_PER_ROW, cv = (i % Cfg::VECS_PER_ROW) * Cfg::VEC;
+      for (int i = tid; i < SPB * VECS_PER_ROW; i += THREADS) {
+        const int r = i / VECS_PER_ROW, cv = (i % VECS_PER_ROW) * VEC;
         *reinterpret_cast<uint4*>(&sv[r][cv]) =
             *reinterpret_cast<const uint4*>(v + (row0 + (size_t)r * RSTRIDE) * D + k0 + cv);
       }
       __syncthreads();
-      TileProduct<T>::run(sq, sv, qa, nb, g, t4, acc);
+      tile_product(sq, sv, qa, nb, t4, acc);
     }
     // epilogue: weight, mask and fold member m into each pair's list
 #pragma unroll
@@ -319,12 +258,13 @@ segmax_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
   }
 }
 
-template <int TOPJ, typename T, int VAR>
+template <int TOPJ, int VAR>
 cudaError_t launch(const void* q, const void* v, const float* w, float* out_m, int32_t* out_i,
                    float* out_s, int B, int N, int D, cudaStream_t stream) {
   const dim3 grid((B + BQ - 1) / BQ, N / CB);
-  segmax_kernel<TOPJ, T, VAR><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(v), w, out_m, out_i, out_s, B, N, D);
+  segmax_kernel<TOPJ, VAR><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(v), w, out_m, out_i, out_s, B, N,
+      D);
   return cudaGetLastError();
 }
 
@@ -334,9 +274,9 @@ bool shape_ok(int B, int N, int D) {
 
 }  // namespace
 
-// topj: 4 or 2; f32 storage only (dtype 1): in bf16 storage (dtype 0) B1 and
-// B2 run gvdb_segmax_max (csrc/segmax_max.cu), so dtype 0 is refused with
-// cudaErrorInvalidValue. q [B, D] and v [N, D] f32, w [N] f32, out_m
+// topj: 4 or 2; f32 storage only (dtype 1): in bf16 storage (dtype 0) every
+// instance runs gvdb_segmax_max (csrc/segmax_max.cu), so dtype 0 is refused
+// with cudaErrorInvalidValue. q [B, D] and v [N, D] f32, w [N] f32, out_m
 // [topj, B, N/32] f32, out_i [topj-1, B, N/32] int32, all contiguous, 16-byte
 // aligned, on `device`. Returns a cudaError_t (0 = launched).
 extern "C" int gvdb_segmax(int topj, int dtype, int device, const void* q, const void* v,
@@ -346,40 +286,29 @@ extern "C" int gvdb_segmax(int topj, int dtype, int device, const void* q, const
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (topj == 4) return (int)launch<4, float, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
-  if (topj == 2) return (int)launch<2, float, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
+  if (topj == 4) return (int)launch<4, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
+  if (topj == 2) return (int)launch<2, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The instances of B7-B10. variant: 0 = B9 (maxima, out_m [B, N/32]; f32
-// storage only), 1 = B10 (contiguous maxima, out_m [N/32, B]; f32 only), 2 = B8 (selfold: out_m
-// [2, B, N/32], out_i [1, B, N/32]), 3 = B7 (B1's planes plus out_s
-// [2, B, N/4096]). Unused outputs may be null. dtype, layouts and the return
+// The instances of B7-B10. variant: 0 = B9 (maxima, out_m [B, N/32]), 1 = B10
+// (contiguous maxima, out_m [N/32, B]), 2 = B8 (selfold: out_m [2, B, N/32],
+// out_i [1, B, N/32]), 3 = B7 (B1's planes plus out_s [2, B, N/4096]). Unused
+// outputs may be null. f32 storage only (dtype 1), layouts and the return
 // value as gvdb_segmax.
 extern "C" int gvdb_segmax_variant(int variant, int dtype, int device, const void* q,
                                    const void* v, const float* w, float* out_m, int32_t* out_i,
                                    float* out_s, int B, int N, int D, void* stream) {
-  if (!shape_ok(B, N, D) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, N, D) || dtype != 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using BF = __nv_bfloat16;
-  const bool bf = dtype == 0;
   switch (variant) {
-    case 0:   // bf16 storage: gvdb_segmax_max (csrc/segmax_max.cu)
-      return bf ? (int)cudaErrorInvalidValue
-                : (int)launch<1, float, PLAIN>(q, v, w, out_m, nullptr, nullptr, B, N, D, s);
-    case 1:
-      return bf ? (int)cudaErrorInvalidValue
-                : (int)launch<1, float, CONTIG>(q, v, w, out_m, nullptr, nullptr, B, N, D, s);
-    case 2:
-      return bf ? (int)launch<2, BF, SELFOLD>(q, v, w, out_m, out_i, nullptr, B, N, D, s)
-                : (int)launch<2, float, SELFOLD>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
-    case 3:
-      return bf ? (int)launch<4, BF, SUP>(q, v, w, out_m, out_i, out_s, B, N, D, s)
-                : (int)launch<4, float, SUP>(q, v, w, out_m, out_i, out_s, B, N, D, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: return (int)launch<1, PLAIN>(q, v, w, out_m, nullptr, nullptr, B, N, D, s);
+    case 1: return (int)launch<1, CONTIG>(q, v, w, out_m, nullptr, nullptr, B, N, D, s);
+    case 2: return (int)launch<2, SELFOLD>(q, v, w, out_m, out_i, nullptr, B, N, D, s);
+    case 3: return (int)launch<4, SUP>(q, v, w, out_m, out_i, out_s, B, N, D, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

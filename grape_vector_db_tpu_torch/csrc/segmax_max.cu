@@ -1,16 +1,18 @@
 // Segment top-j on the tensor cores (Hopper, sm_90a): the bf16-storage
-// instances of B1, B2, B9 and B10.
+// instances of B1, B2, B7, B8, B9 and B10.
 //
 // Replaces the Pallas TPU kernels of grape_vector_db_tpu/ops/segmax_pallas.py:
-//   <4, strided> B1  _segmax4_kernel (:354, call :482),       segmax4_scores_pallas
-//   <2, strided> B2  _segmax2_kernel (:124, call :217),       segmax2_scores_pallas
-//   <1, strided> B9  _segmax_kernel (:53, call :109),         segmax_scores_pallas
-//   <1, contig>  B10 _segmax_kernel_contig (:728, call :784), segmax_scores_pallas_contig
+//   <4, PLAIN>   B1  _segmax4_kernel (:354, call :482),         segmax4_scores_pallas
+//   <2, PLAIN>   B2  _segmax2_kernel (:124, call :217),         segmax2_scores_pallas
+//   <1, PLAIN>   B9  _segmax_kernel (:53, call :109),           segmax_scores_pallas
+//   <1, CONTIG>  B10 _segmax_kernel_contig (:728, call :784),   segmax_scores_pallas_contig
+//   <2, SELFOLD> B8  _segmax2_kernel_selfold (:237, call :217), segmax2_scores_pallas(impl="selfold")
+//   <4, SUP>     B7  _segmax4_sup_kernel (:401, call :542),     segmax4_sup_scores_pallas
 // It is bound to PyTorch through a plain C interface (ctypes) by
 // grape_vector_db_tpu_torch/ops/segmax.py (segmax4_scores, segmax2_scores,
-// segmax_scores, segmax_scores_contig), which also holds the plain PyTorch
-// versions. f32 storage, and B7 and B8 in either storage, stay on the
-// template of csrc/segmax.cu (full-f32 FMA: the port keeps TF32 off).
+// segmax_scores, segmax_scores_contig, segmax4_sup_scores), which also holds
+// the plain PyTorch versions. f32 storage stays on the template of
+// csrc/segmax.cu (full-f32 FMA: the port keeps TF32 off).
 //
 // Contract (as csrc/segmax.cu states it). For query b and corpus row r:
 //   s[b, r] = dot(q[b], v[r]) * w[r]   (bf16 operands, f32 accumulation), and
@@ -20,19 +22,23 @@
 //            32 scores (a multiset, -inf included) to out_m [TOPJ, B, N/32]
 //            and the member index m of ranks 1 .. TOPJ-1 to out_i
 //            [TOPJ-1, B, N/32], members ordered by (score descending, m
-//            ascending), all -inf segments included (m = 0, 1, 2).
+//            ascending), all -inf segments included (m = 0, 1, 2). SELFOLD
+//            orders tied members by their 5-bit bit-reversed index instead.
+//            SUP also writes out_s [2, B, N/4096]: the maxima of the rank-1
+//            and rank-2 values over each block's 128 segments.
 //   contig:  segment g holds rows 32 g .. 32 g + 31; TOPJ = 1 only, and out_m
 //            is the maxima, [N/32, B].
 //
 // What bounds it on an H100. At B = 128 and a 1,048,576 x 768 bf16 corpus the
 // corpus read is 1.61 GB; with w (4 MB), q and the planes written (16.8 MB for
-// TOPJ = 1, 50.3 MB for 2, 117.4 MB for 4) that is 0.487 / 0.497 / 0.517 ms at
-// 3.35 TB/s. The products are 0.206 TFLOP, 0.21 ms at 989 TFLOP/s: the kernel
-// is bound by bytes. The [B, N] score plane (512 MB) never leaves the SM.
+// TOPJ = 1, 50.3 MB for 2, 117.4 MB for 4, 117.7 MB for SUP) that is 0.487 /
+// 0.497 / 0.517 ms at 3.35 TB/s. The products are 0.206 TFLOP, 0.21 ms at 989
+// TFLOP/s: the kernel is bound by bytes. The [B, N] score plane (512 MB) never
+// leaves the SM.
 //
 // Design.
 // - A tile is 128 queries x 256 corpus rows that hold 8 whole segments, so no
-//   state crosses tiles. Strided: TMA sees v as the 4-D tensor
+//   segment's state crosses tiles. Strided: TMA sees v as the 4-D tensor
 //   (D, j:128, m:32, blk:N/4096) and loads the box (64, 8, 32, 1): shared row
 //   8 m + jl is member m of segment j0 + jl. Contig: the plain 2-D box
 //   (64, 256) of rows 256 c ..; shared row 32 s + mm is member mm of segment s.
@@ -56,14 +62,26 @@
 //   at B > 128 the corpus comes from HBM once and from L2 after that. q rows
 //   past B are zero-filled by TMA's bounds, and their stores are skipped.
 // - Epilogue: multiply by w, select -inf where w == 0. Strided: each of a
-//   thread's four (query row, segment) pairs walks its members i = 0 .. 31 in
-//   ascending order and folds each score into a register list of TOPJ values
-//   and one packed word of member indices (insert below: TOPJ = 1 is the
-//   maximum); each plane stores 8 contiguous values a query row (one float2 or
-//   int2 a thread, a quad of lanes filling one 32-byte sector). Contig stores
-//   8 rows of [N/32, B], each warp store filling whole 32-byte sectors. The
-//   top-4 epilogue is ~128 insertions a thread a tile, a few microseconds
-//   that the ring's 4 stages (192 KB in flight) cover.
+//   thread's four (query row, segment) pairs walks its 32 members and folds
+//   each score into a register list of TOPJ values and one packed word of
+//   member indices (insert below: TOPJ = 1 is the maximum). The stable
+//   insertion makes the walk's order the tie rule: members ascending, or for
+//   SELFOLD in 5-bit bit-reversed order (step i reads member brev5(i), a
+//   constant in the unrolled walk, so d keeps compile-time indices). Each
+//   plane stores 8 contiguous values a query row (one float2 or int2 a
+//   thread, a quad of lanes filling one 32-byte sector). Contig stores 8 rows
+//   of [N/32, B], each warp store filling whole 32-byte sectors. The top-4
+//   epilogue is ~128 insertions a thread a tile, a few microseconds that the
+//   ring's 4 stages (192 KB in flight) cover.
+// - SUP's block maxima: a block's 16 tiles land on different SMs, so each
+//   tile folds its share into out_s. Two __shfl_xor_sync over t4 give the max
+//   of the rank-1 / rank-2 values over the tile's 8 segments for each query
+//   row, and one lane a (row, rank) issues an atomic max on the float's bits
+//   (atomicMax on the int bits when the sign bit is clear, atomicMin on the
+//   unsigned bits when it is set): exact and independent of order, so s1 and
+//   s2 equal the plain amax bit for bit. 256 atomics a tile, 16 on each
+//   address. A small fill kernel writes -inf to out_s first, on the same
+//   stream, from the same C entry.
 // The tensor maps are encoded on the host for each call through the driver's
 // cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint (the library
 // links no libcuda), and passed as __grid_constant__ parameters.
@@ -260,16 +278,42 @@ __device__ __forceinline__ void insert(float (&val)[TOPJ], uint32_t& idx, float 
   idx = (keep | (static_cast<uint32_t>(m) << sh) | moved) & kMask;
 }
 
-// -- the kernel ------------------------------------------------------------------
+// 5-bit bit reversal: SELFOLD's step i reads member brev5(i).
+__host__ __device__ constexpr int brev5(int x) {
+  return ((x & 1) << 4) | ((x & 2) << 2) | (x & 4) | ((x & 8) >> 2) | ((x & 16) >> 4);
+}
+
+// Exact float max into global memory: for a clear sign bit the float's order
+// is its int bits' order, for a set one the reverse of its unsigned bits'.
+__device__ __forceinline__ void atomic_max_float(float* addr, float x) {
+  if (__float_as_int(x) >= 0)
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(x));
+  else
+    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(x));
+}
+
+// The walk and the outputs of one instance (csrc/segmax.cu's enum).
+enum Variant { PLAIN = 0, CONTIG = 1, SELFOLD = 2, SUP = 3 };
+
+// -- the kernels -----------------------------------------------------------------
+
+__global__ void fill_kernel(float* __restrict__ p, int n, float x) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    p[i] = x;
+}
 
 // Walk order: tile t is (corpus tile t / nqt, query tile t % nqt).
-template <int TOPJ, bool CONTIG>
+template <int TOPJ, int VAR>
 __global__ void __launch_bounds__(THREADS, 1)
 segmax_max_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap vmap,
                   const __grid_constant__ CUtensorMap wmap, float* __restrict__ out,
-                  int32_t* __restrict__ out_i, int B, int N, int ksteps) {
-  static_assert(TOPJ == 1 || (!CONTIG && (TOPJ == 2 || TOPJ == 4)), "no such instance");
+                  int32_t* __restrict__ out_i, float* __restrict__ out_s, int B, int N,
+                  int ksteps) {
+  static_assert((VAR == PLAIN && (TOPJ == 1 || TOPJ == 2 || TOPJ == 4)) ||
+                    (VAR == CONTIG && TOPJ == 1) || (VAR == SELFOLD && TOPJ == 2) ||
+                    (VAR == SUP && TOPJ == 4),
+                "no such instance");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -308,7 +352,7 @@ segmax_max_kernel(const __grid_constant__ CUtensorMap qmap,
         const int c = t / nqt, q0 = (t % nqt) * BM;
         mbar_wait(wempty + 8 * ws, wphase ^ 1);
         mbar_expect_tx(wfull + 8 * ws, W_BYTES);
-        if (CONTIG)
+        if (VAR == CONTIG)
           tma_load_2d(sw + ws * W_BYTES, &wmap, wfull + 8 * ws, 0, c);
         else
           tma_load_3d(sw + ws * W_BYTES, &wmap, wfull + 8 * ws, (c % TPB) * SEGS, 0, c / TPB);
@@ -317,7 +361,7 @@ segmax_max_kernel(const __grid_constant__ CUtensorMap qmap,
           mbar_wait(empty + 8 * stage, phase ^ 1);
           mbar_expect_tx(full + 8 * stage, Q_BYTES + V_BYTES);
           tma_load_2d(sq + stage * Q_BYTES, &qmap, full + 8 * stage, kb * BK, q0);
-          if (CONTIG)
+          if (VAR == CONTIG)
             tma_load_2d(sv + stage * V_BYTES, &vmap, full + 8 * stage, kb * BK, c * BN);
           else
             tma_load_4d(sv + stage * V_BYTES, &vmap, full + 8 * stage, kb * BK,
@@ -363,7 +407,7 @@ segmax_max_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_wait(wfull + 8 * ws, wphase);
       const float* wt = wbuf + ws * BN;
       const int b0 = q0 + wg * 64 + warp * 16 + g;   // rows b0 and b0 + 8
-      if (!CONTIG) {
+      if (VAR != CONTIG) {
         // pairs e: query row b0 + 8 (e >> 1), segment 2 t4 + (e & 1)
         float val[4][TOPJ];
         uint32_t idx[4] = {0u, 0u, 0u, 0u};
@@ -373,16 +417,17 @@ segmax_max_kernel(const __grid_constant__ CUtensorMap qmap,
           for (int t = 0; t < TOPJ; ++t) val[e][t] = -INFINITY;
         }
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {              // member i, ascending
-          const float2 wv = *reinterpret_cast<const float2*>(wt + 8 * i + 2 * t4);
+        for (int i = 0; i < 32; ++i) {              // step i reads member m
+          const int m = VAR == SELFOLD ? brev5(i) : i;
+          const float2 wv = *reinterpret_cast<const float2*>(wt + 8 * m + 2 * t4);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float wr = (e & 1) ? wv.y : wv.x;
-            const float s = wr == 0.f ? -INFINITY : d[4 * i + e] * wr;
+            const float s = wr == 0.f ? -INFINITY : d[4 * m + e] * wr;
             if constexpr (TOPJ == 1)
               val[e][0] = fmaxf(val[e][0], s);
             else
-              insert<TOPJ>(val[e], idx[e], s, i, i);
+              insert<TOPJ>(val[e], idx[e], s, i, m);
           }
         }
         __syncwarp();
@@ -404,6 +449,24 @@ segmax_max_kernel(const __grid_constant__ CUtensorMap qmap,
             *reinterpret_cast<int2*>(out_i + t * plane + at) =
                 make_int2(static_cast<int>((idx[2 * h] >> (IDX_BITS * t)) & 31u),
                           static_cast<int>((idx[2 * h + 1] >> (IDX_BITS * t)) & 31u));
+        }
+        if constexpr (VAR == SUP) {
+          // the tile's share of s1 / s2 (rank r = 0 / 1) of query rows b0 + 8 h:
+          // this thread's two segments, then the 4 lanes of t4 (the tile's 8
+          // segments); lane t4 == 2 h + r folds it into block c / TPB
+          const size_t nblk = static_cast<size_t>(N) / CB;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float x = fmaxf(val[2 * h][r], val[2 * h + 1][r]);
+              x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+              x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+              const int b = b0 + 8 * h;
+              if (t4 == 2 * h + r && b < B)
+                atomic_max_float(out_s + (static_cast<size_t>(r) * B + b) * nblk + c / TPB, x);
+            }
+          }
         }
       } else {
         float mx[SEGS][2];
@@ -485,9 +548,9 @@ int encode(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type, int rank,
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE_BASE - static_cast<int>(r);
 }
 
-template <int TOPJ, bool CONTIG>
-int launch(const void* q, const void* v, const float* w, float* out_m, int32_t* out_i, int B,
-           int N, int D, int device, cudaStream_t stream) {
+template <int TOPJ, int VAR>
+int launch(const void* q, const void* v, const float* w, float* out_m, int32_t* out_i,
+           float* out_s, int B, int N, int D, int device, cudaStream_t stream) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
   const cuuint64_t d = static_cast<cuuint64_t>(D), row = d * 2;
@@ -499,7 +562,7 @@ int launch(const void* q, const void* v, const float* w, float* out_m, int32_t* 
                           box, CU_TENSOR_MAP_SWIZZLE_128B);
     if (rc) return rc;
   }
-  if (CONTIG) {
+  if (VAR == CONTIG) {
     const cuuint64_t dims[2] = {d, static_cast<cuuint64_t>(N)}, strides[1] = {row};
     const cuuint32_t box[2] = {BK, BN};
     int rc = encode(fn, &vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, v, dims, strides, box,
@@ -528,44 +591,63 @@ int launch(const void* q, const void* v, const float* w, float* out_m, int32_t* 
   int sms = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(segmax_max_kernel<TOPJ, CONTIG>,
+  err = cudaFuncSetAttribute(segmax_max_kernel<TOPJ, VAR>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (VAR == SUP) {          // the block maxima start at -inf
+    const int n = 2 * B * (N / CB);
+    fill_kernel<<<(n + 255) / 256 < sms ? (n + 255) / 256 : sms, 256, 0, stream>>>(
+        out_s, n, -INFINITY);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int ntiles = (N / BN) * ((B + BM - 1) / BM);
   const int grid = ntiles < sms ? ntiles : sms;
-  segmax_max_kernel<TOPJ, CONTIG><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      qmap, vmap, wmap, out_m, out_i, B, N, D / BK);
+  segmax_max_kernel<TOPJ, VAR><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      qmap, vmap, wmap, out_m, out_i, out_s, B, N, D / BK);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// contig 0, topj 4 = B1, topj 2 = B2, topj 1 = B9 (strided segments; out_m
-// [topj, B, N/32], out_i [topj-1, B, N/32], null for topj 1); contig 1, topj 1
-// = B10 (contiguous segments, out_m [N/32, B]). q [B, D] and v [N, D] bf16,
-// w [N] f32, outputs f32 / int32, all contiguous, 16-byte aligned, on
-// `device`; N % 4096 == 0, D % 64 == 0. Returns 0 once launched, a
-// cudaError_t, or one of this library's negative codes (gvdb_cuda_error_string
-// names each).
-extern "C" int gvdb_segmax_max(int contig, int topj, int device, const void* q, const void* v,
-                               const float* w, float* out_m, int32_t* out_i, int B, int N,
-                               int D, void* stream) {
-  if (B <= 0 || N <= 0 || N % CB || D <= 0 || D % BK)
-    return static_cast<int>(cudaErrorInvalidValue);
+// The six instances, by variant (csrc/segmax.cu's enum) and top-j: PLAIN 4 =
+// B1, PLAIN 2 = B2, PLAIN 1 = B9, SELFOLD 2 = B8, SUP 4 = B7 (strided
+// segments; out_m [topj, B, N/32], out_i [topj-1, B, N/32], null for topj 1;
+// SUP also out_s [2, B, N/4096]); CONTIG 1 = B10 (contiguous segments, out_m
+// [N/32, B]). q [B, D] and v [N, D] bf16, w [N] f32, outputs f32 / int32, all
+// contiguous, 16-byte aligned, on `device`; N % 4096 == 0, D % 64 == 0. A
+// combination with no instance, or a missing output, is refused with
+// cudaErrorInvalidValue. Returns 0 once launched, a cudaError_t, or one of
+// this library's negative codes (gvdb_cuda_error_string names each).
+extern "C" int gvdb_segmax_max(int variant, int topj, int device, const void* q, const void* v,
+                               const float* w, float* out_m, int32_t* out_i, float* out_s,
+                               int B, int N, int D, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || N <= 0 || N % CB || D <= 0 || D % BK) return invalid;
+  if (variant < PLAIN || variant > SUP || topj < 1 || topj > 4) return invalid;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(v) |
        reinterpret_cast<uintptr_t>(w)) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((contig && topj != 1) || (topj > 1 && out_i == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+    return invalid;
+  if (out_m == nullptr || (topj > 1 && out_i == nullptr) || (variant == SUP && out_s == nullptr))
+    return invalid;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (contig) return launch<1, true>(q, v, w, out_m, nullptr, B, N, D, device, s);
-  switch (topj) {
-    case 1: return launch<1, false>(q, v, w, out_m, nullptr, B, N, D, device, s);
-    case 2: return launch<2, false>(q, v, w, out_m, out_i, B, N, D, device, s);
-    case 4: return launch<4, false>(q, v, w, out_m, out_i, B, N, D, device, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  switch (variant * 8 + topj) {
+    case PLAIN * 8 + 1:
+      return launch<1, PLAIN>(q, v, w, out_m, nullptr, nullptr, B, N, D, device, s);
+    case PLAIN * 8 + 2:
+      return launch<2, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, device, s);
+    case PLAIN * 8 + 4:
+      return launch<4, PLAIN>(q, v, w, out_m, out_i, nullptr, B, N, D, device, s);
+    case CONTIG * 8 + 1:
+      return launch<1, CONTIG>(q, v, w, out_m, nullptr, nullptr, B, N, D, device, s);
+    case SELFOLD * 8 + 2:
+      return launch<2, SELFOLD>(q, v, w, out_m, out_i, nullptr, B, N, D, device, s);
+    case SUP * 8 + 4:
+      return launch<4, SUP>(q, v, w, out_m, out_i, out_s, B, N, D, device, s);
+    default:
+      return invalid;
   }
 }
 

@@ -15,12 +15,13 @@ The contiguous layout (``segmax_scores_contig``) has segment g = rows
 Phase 1 has two implementations of each contract: hand-written CUDA
 kernels, built with ``nvcc`` at first use into
 ``grape_vector_db_tpu_torch/_build/`` and called through a plain C
-interface, and the plain PyTorch versions (``*_ref``). In bf16 storage B1,
-B2, B9 and B10 run the persistent TMA + wgmma kernel of
-``csrc/segmax_max.cu`` (one main loop, a top-4, top-2 or maximum epilogue);
-B7, B8 and every instance in f32 storage run the template of
-``csrc/segmax.cu`` (``_library`` names the source of each). Wrapper, the
-TPU kernel it replaces, ``LAUNCHES`` key:
+interface, and the plain PyTorch versions (``*_ref``). In bf16 storage every
+instance runs the persistent TMA + wgmma kernel of ``csrc/segmax_max.cu``
+(one main loop; a top-4, top-2 or maximum epilogue, the top-2 one also with
+the members walked in bit-reversed order for B8, the top-4 one also folding
+B7's block maxima); in f32 storage every instance runs the template of
+``csrc/segmax.cu`` (``_library`` names the source). Wrapper, the TPU kernel
+it replaces, ``LAUNCHES`` key:
 
 - ``segmax4_scores``: B1 ``_segmax4_kernel``, ``segmax4``;
 - ``segmax2_scores``: B2 ``_segmax2_kernel``, ``segmax2``;
@@ -96,7 +97,7 @@ def build_kernels() -> ctypes.CDLL:
 def _bind_max(lib: ctypes.CDLL) -> None:
     lib.gvdb_segmax_max.restype = ctypes.c_int
     lib.gvdb_segmax_max.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.gvdb_segmax_max_smem_bytes.restype = ctypes.c_int
     lib.gvdb_segmax_max_smem_bytes.argtypes = []
 
@@ -108,23 +109,22 @@ def build_max_kernel() -> ctypes.CDLL:
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
-# (top-j, variant) -> (LAUNCHES key, variant code of gvdb_segmax_variant;
-# None: gvdb_segmax)
-_INSTANCES = {(4, "plain"): ("segmax4", None), (2, "plain"): ("segmax2", None),
-              (1, "plain"): ("segmax", 0), (1, "contig"): ("segmax_contig", 1),
-              (2, "selfold"): ("segmax2_selfold", 2), (4, "sup"): ("segmax4_sup", 3)}
+# (top-j, variant) -> LAUNCHES key: B1, B2, B9, B10, B8, B7
+_INSTANCES = {(4, "plain"): "segmax4", (2, "plain"): "segmax2", (1, "plain"): "segmax",
+              (1, "contig"): "segmax_contig", (2, "selfold"): "segmax2_selfold",
+              (4, "sup"): "segmax4_sup"}
 
-
-#: the instances that run ``csrc/segmax_max.cu`` in bf16 storage: B9, B10, B2, B1
-_MAX_INSTANCES = frozenset({(1, "plain"), (1, "contig"), (2, "plain"), (4, "plain")})
+#: the variant codes of both sources' C entries (their enum Variant)
+_VARIANT_CODE = {"plain": 0, "contig": 1, "selfold": 2, "sup": 3}
 
 
 def _library(instance: Tuple[int, str], dtype: torch.dtype) -> str:
     """The source whose kernel an instance ((top-j, variant), a key of
-    ``_INSTANCES``) launches: B1, B2, B9 and B10 in bf16 storage run
-    ``segmax_max``; B7, B8 and every instance in f32 storage run the
-    ``segmax`` template."""
-    return "segmax_max" if dtype == torch.bfloat16 and instance in _MAX_INSTANCES else "segmax"
+    ``_INSTANCES``) launches: in bf16 storage ``segmax_max``, the TMA +
+    wgmma kernel; in f32 storage the ``segmax`` template."""
+    if instance not in _INSTANCES:
+        raise KeyError(f"no segment kernel instance {instance!r}")
+    return "segmax_max" if dtype == torch.bfloat16 else "segmax"
 
 
 def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
@@ -132,7 +132,7 @@ def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
     """Run one kernel instance: values [topj, B, N/SEG] f32 (contig:
     [N/SEG, B]), member indices [topj-1, B, N/SEG] int32, and block maxima
     [2, B, N/CB] f32 (sup; empty otherwise)."""
-    name, code = _INSTANCES[(topj, variant)]
+    name = _INSTANCES[(topj, variant)]
     dev = vectors.device
     if dev.type != "cuda" or q.device != dev or w.device != dev:
         raise ValueError(f"{name}: q, vectors and w must lie on one CUDA device")
@@ -164,12 +164,13 @@ def _launch(topj: int, q: torch.Tensor, vectors: torch.Tensor, w: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (_DTYPE_CODE[vectors.dtype], dev.index or 0, qc.data_ptr(), vectors.data_ptr(),
             wc.data_ptr(), vals.data_ptr(), idxs.data_ptr())
+    code = _VARIANT_CODE[variant]
     if library == "segmax_max":        # bf16 only
         lib = build_max_kernel()
-        rc = lib.gvdb_segmax_max(int(variant == "contig"), topj, *args[1:], b, n, d, stream)
-    else:
+        rc = lib.gvdb_segmax_max(code, topj, *args[1:], sup.data_ptr(), b, n, d, stream)
+    else:                              # f32 only; B1 and B2 through gvdb_segmax
         lib = build_kernels()
-        rc = (lib.gvdb_segmax(topj, *args, b, n, d, stream) if code is None
+        rc = (lib.gvdb_segmax(topj, *args, b, n, d, stream) if variant == "plain" and topj > 1
               else lib.gvdb_segmax_variant(code, *args, sup.data_ptr(), b, n, d, stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "

@@ -105,12 +105,15 @@ def _gaussian_segments(cuda, layout, b, d, n):
     return q, v, w
 
 
-# top-j of the strided instances on csrc/segmax_max.cu in bf16 storage:
-# wrapper, plain version, LAUNCHES key (B9, B2, B1)
-STRIDED_TOPJ = {
-    1: (tseg.segmax_scores, tseg.segmax_scores_ref, "segmax"),
-    2: (tseg.segmax2_scores, tseg.segmax2_scores_ref, "segmax2"),
-    4: (tseg.segmax4_scores, tseg.segmax4_scores_ref, "segmax4"),
+# the instances of csrc/segmax_max.cu in bf16 storage, by (layout or strided
+# variant, top-j): wrapper, plain version, LAUNCHES key (B9, B2, B1, B10, B8, B7)
+MAX_KERNELS = {
+    ("strided", 1): (tseg.segmax_scores, tseg.segmax_scores_ref, "segmax"),
+    ("strided", 2): (tseg.segmax2_scores, tseg.segmax2_scores_ref, "segmax2"),
+    ("strided", 4): (tseg.segmax4_scores, tseg.segmax4_scores_ref, "segmax4"),
+    ("contig", 1): (*VARIANTS["segmax_contig"], "segmax_contig"),
+    ("selfold", 2): (*VARIANTS["segmax2_selfold"], "segmax2_selfold"),
+    ("sup", 4): (*VARIANTS["segmax4_sup"], "segmax4_sup"),
 }
 
 
@@ -145,20 +148,18 @@ def _check_topj_planes(topj, got, want, tol=3e-3):
 @pytest.mark.parametrize("n", [4096, 8192, 12288])
 @pytest.mark.parametrize("d", [128, 384, 768, 1536])
 @pytest.mark.parametrize("b", [1, 40, 64, 65, 128, 200, 256])
-@pytest.mark.parametrize("layout,topj", [("strided", 1), ("strided", 2), ("strided", 4),
-                                         ("contig", 1)])
+@pytest.mark.parametrize("layout,topj", list(MAX_KERNELS))
 def test_segmax_max_kernel_matches_plain(cuda, layout, topj, b, d, n):
-    """B9/B10, and B2/B1 (strided top-2 / top-4), in bf16 storage
-    (csrc/segmax_max.cu, TMA + wgmma) on Gaussian rows: -inf exactly where
-    the plain version has it (the all-invalid first tile and segment 13
-    among them), values within 3e-3 (bf16 operands, f32 sums in another
-    order), member indices equal away from near ties; one launch."""
-    if layout == "contig":
-        kern, plain = VARIANTS["segmax_contig"]
-        key = "segmax_contig"
-    else:
-        kern, plain, key = STRIDED_TOPJ[topj]
-    q, v, w = _gaussian_segments(cuda, layout, b, d, n)
+    """B9/B10, B2/B1 (strided top-2 / top-4) and B8/B7 (the same with the
+    selfold walk / the block maxima) in bf16 storage (csrc/segmax_max.cu,
+    TMA + wgmma) on Gaussian rows: -inf exactly where the plain version has
+    it (the all-invalid first tile and segment 13 among them), values
+    within 3e-3 (bf16 operands, f32 sums in another order), member indices
+    equal away from near ties; one launch. B7's seven planes equal B1's and
+    its s1 / s2 the block maxima of its own m1 / m2, and B8's values equal
+    B2's, bit for bit: the same main loop and arithmetic."""
+    kern, plain, key = MAX_KERNELS[layout, topj]
+    q, v, w = _gaussian_segments(cuda, "contig" if layout == "contig" else "strided", b, d, n)
     before = tseg.LAUNCHES[key]
     got = kern(q, v, w)
     torch.cuda.synchronize()
@@ -166,22 +167,33 @@ def test_segmax_max_kernel_matches_plain(cuda, layout, topj, b, d, n):
     want = plain(q, v, w)
     if layout == "contig":
         got, want = got.T, want.T                       # [B, N/32]
+    elif layout == "sup":
+        for a, p in zip(got[:7], tseg.segmax4_scores(q, v, w)):
+            assert torch.equal(a, p)
+        for t in (0, 1):
+            s = got[7 + t]
+            assert s.shape == want[7 + t].shape == (b, n // tseg.CB)
+            assert torch.equal(s, got[t].view(b, -1, tseg.CB // tseg.SEG).amax(dim=2))
+            assert torch.equal(torch.isneginf(s), torch.isneginf(want[7 + t]))
+            fin = torch.isfinite(s)
+            assert (s - want[7 + t])[fin].abs().max().item() <= 3e-3
+        got, want = got[:7], want[:7]
+    elif layout == "selfold":
+        m1, _, m2 = tseg.segmax2_scores(q, v, w)
+        assert torch.equal(got[0], m1) and torch.equal(got[2], m2)
     vals = _check_topj_planes(topj, got, want)
     assert torch.isneginf(vals[:, :, :8]).all() and torch.isneginf(vals[:, :, 13]).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 130, 256])
-@pytest.mark.parametrize("layout,topj", [("strided", 1), ("strided", 2), ("strided", 4),
-                                         ("contig", 1)])
+@pytest.mark.parametrize("layout,topj", list(MAX_KERNELS))
 def test_segmax_max_kernel_integer_case_is_exact(cuda, layout, topj, b):
-    """On the integer case every sum is exact, so B9/B10 and B2/B1 in bf16
-    storage equal their plain versions bit for bit, member indices and ties
-    included, across one, two and full query tiles."""
-    if layout == "contig":
-        kern, plain = VARIANTS["segmax_contig"]
-    else:
-        kern, plain, _ = STRIDED_TOPJ[topj]
+    """On the integer case every sum is exact, so B9/B10, B2/B1 and B8/B7 in
+    bf16 storage equal their plain versions bit for bit, member indices,
+    ties and B7's block maxima included, across one, two and full query
+    tiles."""
+    kern, plain, _ = MAX_KERNELS[layout, topj]
     v, q, w = _integer_case(b=b)
     v, q, w = v.to(cuda).to(torch.bfloat16), q.to(cuda), w.to(cuda)
     got = _planes(kern(q, v, w))
@@ -226,22 +238,24 @@ class _FailingLaunch:
 
 @pytest.mark.cuda
 def test_segmax_topj_bf16_runs_the_tma_kernel_and_never_falls_back(cuda, monkeypatch):
-    """B1 and B2 in f32 storage launch the csrc/segmax.cu template even when
-    the TMA + wgmma library cannot be had, and in bf16 storage they then
-    raise; with the template withheld, bf16 still runs (csrc/segmax_max.cu)
-    and f32 raises; the template's C entry refuses bf16 outright; and a
-    launch that fails, or a w that TMA cannot read, raises without counting
-    a launch."""
+    """B1, B2, B7 and B8 in f32 storage launch the csrc/segmax.cu template
+    even when the TMA + wgmma library cannot be had, and in bf16 storage
+    they then raise; with the template withheld, bf16 still runs
+    (csrc/segmax_max.cu) and f32 raises; the template's C entries refuse
+    bf16 outright, and gvdb_segmax_max refuses a combination it has no
+    instance for (SUP without out_s among them); and a launch that fails,
+    or a w that TMA cannot read, raises without counting a launch."""
     v, q, w = _integer_case()
     v, q, w = v.to(cuda), q.to(cuda), w.to(cuda)
     vb = v.to(torch.bfloat16)
-    b1b2 = [STRIDED_TOPJ[4], STRIDED_TOPJ[2]]
+    kernels = [MAX_KERNELS[i] for i in (("strided", 4), ("strided", 2), ("sup", 4),
+                                        ("selfold", 2))]
 
     def refuse():
         raise RuntimeError("library withheld")
 
     monkeypatch.setattr(tseg, "build_max_kernel", refuse)
-    for kern, plain, key in b1b2:
+    for kern, plain, key in kernels:
         before = tseg.LAUNCHES[key]
         for a, p in zip(kern(q, v, w), plain(q, v, w)):
             assert torch.equal(a, p)
@@ -250,9 +264,11 @@ def test_segmax_topj_bf16_runs_the_tma_kernel_and_never_falls_back(cuda, monkeyp
             kern(q, vb, w)
     monkeypatch.undo()
     monkeypatch.setattr(tseg, "build_kernels", refuse)
-    for kern, plain, key in b1b2:
+    for kern, plain, key in kernels:
+        before = tseg.LAUNCHES[key]
         for a, p in zip(kern(q, vb, w), plain(q, vb, w)):
             assert torch.equal(a, p)
+        assert tseg.LAUNCHES[key] == before + 1
         with pytest.raises(RuntimeError, match="withheld"):
             kern(q, v, w)
     monkeypatch.undo()
@@ -260,23 +276,55 @@ def test_segmax_topj_bf16_runs_the_tma_kernel_and_never_falls_back(cuda, monkeyp
     lib = tseg.build_kernels()
     b, n, d = q.shape[0], v.shape[0], v.shape[1]
     qb = q.to(torch.bfloat16)
+    vals = torch.empty((4, b, n // tseg.SEG), device=cuda)
+    idxs = torch.empty((3, b, n // tseg.SEG), dtype=torch.int32, device=cuda)
+    sup = torch.empty((2, b, n // tseg.CB), device=cuda)
+    ptrs = (qb.data_ptr(), vb.data_ptr(), w.data_ptr(), vals.data_ptr(), idxs.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
     for topj in (4, 2):
-        vals = torch.empty((topj, b, n // tseg.SEG), device=cuda)
-        idxs = torch.empty((topj - 1, b, n // tseg.SEG), dtype=torch.int32, device=cuda)
-        rc = lib.gvdb_segmax(topj, 0, cuda.index or 0, qb.data_ptr(), vb.data_ptr(),
-                             w.data_ptr(), vals.data_ptr(), idxs.data_ptr(), b, n, d,
-                             torch.cuda.current_stream().cuda_stream)
+        rc = lib.gvdb_segmax(topj, 0, cuda.index or 0, *ptrs, b, n, d, stream)
         assert rc == 1                                  # cudaErrorInvalidValue
+    for variant in (0, 1, 2, 3):
+        rc = lib.gvdb_segmax_variant(variant, 0, cuda.index or 0, *ptrs, sup.data_ptr(), b, n,
+                                     d, stream)
+        assert rc == 1
+    mlib = tseg.build_max_kernel()
+    # (variant, top-j, out_s): SUP without out_s, then pairs with no instance
+    for variant, topj, out_s in ((3, 4, None), (1, 2, sup), (2, 4, sup), (3, 2, sup),
+                                 (0, 3, sup), (4, 4, sup)):
+        rc = mlib.gvdb_segmax_max(variant, topj, cuda.index or 0, *ptrs,
+                                  None if out_s is None else out_s.data_ptr(), b, n, d, stream)
+        assert rc == 1
 
     monkeypatch.setattr(tseg, "build_max_kernel", lambda: _FailingLaunch())
     shifted = torch.ones(w.shape[0] + 1, device=cuda)[1:]
-    for kern, _, key in b1b2:
+    for kern, _, key in kernels:
         before = tseg.LAUNCHES[key]
         with pytest.raises(RuntimeError, match="launch failed"):
             kern(q, vb, w)
         with pytest.raises(ValueError, match="16-byte"):    # TMA reads w too
             kern(q, vb, shifted)
         assert tseg.LAUNCHES[key] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segmax_sup_block_maxima_with_an_invalid_block(cuda, dtype):
+    """B7 at B = 200 (a ragged second query tile) on the integer case over
+    three blocks, the middle one all invalid: s1 / s2 are -inf there and
+    finite elsewhere, and every plane equals the plain version bit for bit;
+    the query rows past B never reach the block maxima."""
+    v, q, w = _integer_case(n=12_288, b=200)
+    w[4096:8192] = 0.0
+    v, q, w = v.to(cuda).to(getattr(torch, dtype)), q.to(cuda), w.to(cuda)
+    got = tseg.segmax4_sup_scores(q, v, w)
+    torch.cuda.synchronize()
+    want = tseg.segmax4_sup_scores_ref(q, v, w)
+    for a, p in zip(got, want):
+        assert a.shape == p.shape and a.dtype == p.dtype and torch.equal(a, p)
+    for s in got[7:]:
+        assert s.shape == (200, 3)
+        assert torch.isneginf(s[:, 1]).all() and torch.isfinite(s[:, [0, 2]]).all()
 
 
 ENTRY_POINTS = {

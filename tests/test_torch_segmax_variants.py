@@ -319,15 +319,13 @@ def test_entry_points_are_exported():
 
 @pytest.mark.parametrize("instance", list(tseg._INSTANCES))
 def test_kernel_routing_by_instance_and_storage(instance):
-    """B1, B2, B9 and B10 in bf16 storage launch the TMA + wgmma kernel of
-    csrc/segmax_max.cu; B7, B8, and every instance in f32 storage, the
+    """Every instance (B1, B2, B7, B8, B9, B10) in bf16 storage launches the
+    TMA + wgmma kernel of csrc/segmax_max.cu, and in f32 storage the
     csrc/segmax.cu template. Both sources ship with the package."""
     import os
 
-    on_tma = {(4, "plain"), (2, "plain"), (1, "plain"), (1, "contig")}
     assert tseg._library(instance, torch.float32) == "segmax"
-    assert tseg._library(instance, torch.bfloat16) == (
-        "segmax_max" if instance in on_tma else "segmax")
+    assert tseg._library(instance, torch.bfloat16) == "segmax_max"
     csrc = os.path.join(os.path.dirname(tseg.__file__), os.pardir, "csrc")
     for lib in ("segmax", "segmax_max"):
         assert os.path.exists(os.path.join(csrc, f"{lib}.cu"))
