@@ -46,16 +46,20 @@ the port's paths through ``VectorDatabase`` on the card:
   joins over the ingest): ingest, ``optimize()``,
   search, filtered search, deletes and an upsert into the fresh region
   against the numpy oracle; its build, entry step and beam iterations run
-  B11 (``csrc/gather.cu``), which is checked at those three shapes with the
-  ids of a real build round and a real search.
+  B11 (``csrc/gather.cu``): the build's 2048 x 576 calls through the
+  grouped route (a grouping pass, then the persistent kernel), the search's
+  through the pairs route, each route checked at all three shapes with the
+  ids of a real build round and a real search and timed in turns with the
+  other (the pairs route is the parent tree's kernel).
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Every phase raises on failure. Earlier lines report each phase;
 the line before the last is a JSON object with one entry per kernel (B4/B5's
 entries carry their launches on the IVF path; the projected path's own run
 at D = 384 sits under their "d384" key; B11 has one entry for the graph
-search, with its entry step's shape under "entry", and one for the build,
-"gather_dots@build"); the last line is the JSON result. Without a CUDA
+search, with its entry step's shape under "entry", one for the build,
+"gather_dots@build", and one for the build's grouping pass, "gather_group");
+the last line is the JSON result. Without a CUDA
 device, or without the repository beside it, it exits non-zero and prints
 no result.
 """
@@ -142,6 +146,9 @@ KERNELS = {
                     "grape_vector_db_tpu/ops/gather_pallas.py:61"),
     "gather_dots@build": ("grape_vector_db_tpu_torch/csrc/gather.cu",
                           "grape_vector_db_tpu/ops/gather_pallas.py:61"),
+    # B11's grouped route on the build: the grouping pass before its kernel
+    "gather_group": ("grape_vector_db_tpu_torch/csrc/gather.cu",
+                     "grape_vector_db_tpu/ops/gather_pallas.py:61"),
 }
 POPC_PER_CLOCK_PER_SM = 16  # __popc issue rate, CUDA programming guide, cc 9.0
 # IVF kind -> the probe kernel its main search runs
@@ -206,6 +213,9 @@ def ptxas_summary(build_log: str):
         f = re.search(r"Compiling entry function '.*fill_kernel", line)
         h = re.search(r"Compiling entry function '.*hamming_kernel", line)
         g = re.search(r"Compiling entry function '.*gather_dots_kernelILi(\d)ELb(\d)E", line)
+        gg = re.search(r"Compiling entry function '.*grouped_kernelILb(\d)E", line)
+        gp = re.search(r"Compiling entry function '.*group\d+(dedup_count|offsets|scatter|expand)"
+                       r"_kernel", line)
         if mx:
             name = f"{segmax_names[mx[1], mx[2]]}<bf16, TMA + wgmma>"
         elif m:
@@ -217,7 +227,12 @@ def ptxas_summary(build_log: str):
         elif h:
             name = "hamming"
         elif g:
-            name = f"gather_dots<{fmts[g[1]]}, {'16-byte' if g[2] == '1' else 'element'} loads>"
+            name = (f"gather_dots pairs<{fmts[g[1]]}, "
+                    f"{'16-byte' if g[2] == '1' else 'element'} loads>")
+        elif gg:
+            name = f"gather_dots grouped<{'16-byte' if gg[1] == '1' else 'element'} loads>"
+        elif gp:
+            name = f"gather grouping {gp[1]}_kernel"
         elif name and "spill stores" in line:
             spill = line.strip()
         elif name and "Used" in line and "registers" in line:
@@ -1781,65 +1796,192 @@ def proj_probe_shapes(name, idx, corpus):
 # -- graph search (kind="graph") and B11 ----------------------------------------------
 
 
-def gather_check(label, q, v, ids):
+def gather_check(label, q, v, ids, route=None):
     """B11 against its plain version on the card: every entry within 1e-4 of
     its sum of |q_d v_d| (f32 sums in another order). Returns the largest
     difference."""
     from grape_vector_db_tpu_torch.ops import gather
 
-    got = gather.gather_dots(q, v, ids)
+    got = gather.gather_dots(q, v, ids, route=route)
     torch.cuda.synchronize()
     want = gather.gather_dots_ref(q, v, ids)
     scale = gather.gather_dots_ref(q.abs(), v.abs(), ids)
     diff = (got - want).abs()
     require(bool((diff <= 1e-4 * scale + 1e-30).all()),
-            f"gather_dots {label}: kernel and plain version differ by up to "
-            f"{diff.max().item():.3g} (allowance 1e-4 of the |q.v| sum)")
+            f"gather_dots {label} ({route or 'rule'}): kernel and plain version differ by up "
+            f"to {diff.max().item():.3g} (allowance 1e-4 of the |q.v| sum)")
     return diff.max().item()
 
 
-def gather_exact(label, q, v, ids):
+def gather_exact(label, q, v, ids, route=None):
     """B11 equal to its plain version, value for value (exact sums)."""
     from grape_vector_db_tpu_torch.ops import gather
 
-    got = gather.gather_dots(q, v, ids)
+    got = gather.gather_dots(q, v, ids, route=route)
     torch.cuda.synchronize()
     require(torch.equal(got, gather.gather_dots_ref(q, v, ids)),
-            f"gather_dots {label}: kernel and plain version differ on exact sums")
+            f"gather_dots {label} ({route or 'rule'}): kernel and plain version differ on "
+            f"exact sums")
+
+
+def routes_of(v):
+    """The routes a call over this storage can take (the grouped one is bf16's)."""
+    return ("pairs", "grouped") if v.dtype == torch.bfloat16 else ("pairs",)
+
+
+def group_check(ids, n):
+    """The card's grouping pass against its plain version: rep equal, the
+    same first copies, each (query group, row) key one contiguous run, the
+    query groups in order. Returns (distinct pairs, distinct rows)."""
+    from grape_vector_db_tpu_torch.ops import gather
+
+    order, rep, totals = gather.group_pairs(ids, n)
+    o_ref, rep_ref, t_ref = gather.group_pairs_ref(ids, n)
+    torch.cuda.synchronize()
+    pu = int(totals.sum())
+    b, c = ids.shape
+    rows = (ids.clamp(0, n - 1).long() + (torch.arange(b, device=ids.device)
+                                          // gather.GROUP_QUERIES * n)[:, None]).reshape(-1)
+    keys = rows[order[:pu].long()]
+    runs = int((keys[1:] != keys[:-1]).sum()) + 1 if pu else 0
+    require(torch.equal(rep, rep_ref) and torch.equal(totals, t_ref)
+            and torch.equal(torch.sort(order[:pu]).values, torch.sort(o_ref[:pu]).values)
+            and runs == int(torch.unique(keys).numel())
+            and bool((keys[1:] // n >= keys[:-1] // n).all()),
+            f"group_pairs [{b},{c}]: the card's grouping disagrees with its plain version")
+    return pu, int(torch.unique(ids.clamp(0, n - 1)).numel())
+
+
+def device_ms(fn, reps=10):
+    """Device milliseconds a call of fn by kernel name, from torch.profiler
+    (CUPTI) over reps calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if t > 0:
+            out[e.key] = out.get(e.key, 0.0) + t / reps / 1e3
+    return out
 
 
 def gather_times(label, q, v, ids, reps_k, reps_p):
-    """Kernel and plain version timed in turns, the library route (the row
-    gather + torch.bmm: two calls, the rows materialized), and the bound:
-    the distinct rows the ids name, each read once, plus q, the ids and the
-    output, against 2 B C D operations at the bf16 peak."""
+    """Both routes and the plain version timed in turns (plain, pairs,
+    grouped, grouped, pairs, plain; the pairs route is the parent tree's
+    kernel, unchanged), the grouped route's device time by kernel
+    (torch.profiler), the library route (the row gather + torch.bmm: two
+    calls, the rows materialized), and the bound: the distinct rows the ids
+    name, each read once, plus q, the ids and the output, against 2 B C D
+    operations at the bf16 peak. "ms" is the route the rule picks
+    ("rule_picks"), whole call."""
     from grape_vector_db_tpu_torch.ops import gather
 
-    (k1, k2), (p1, p2) = in_turns(lambda: gather.gather_dots(q, v, ids),
-                                  lambda: gather.gather_dots_ref(q, v, ids), reps_k, reps_p)
+    b, c = ids.shape
+    n, d = v.shape
+    route = gather.gather_route(b, c, d, v.dtype)
+    routes = routes_of(v)
+    t = {"plain": [], **{r: [] for r in routes}}
+    t["plain"].append(cuda_ms(lambda: gather.gather_dots_ref(q, v, ids), reps_p))
+    for r in routes + routes[::-1]:
+        t[r].append(cuda_ms(lambda: gather.gather_dots(q, v, ids, route=r), reps_k))
+    t["plain"].append(cuda_ms(lambda: gather.gather_dots_ref(q, v, ids), reps_p))
     qc = q.to(v.dtype)[:, :, None]
     lib = cuda_ms(lambda: torch.bmm(v[ids.long()], qc), reps_p)
-    b, c = ids.shape
-    d = v.shape[1]
-    distinct = int(torch.unique(ids.clamp(0, v.shape[0] - 1)).numel())
-    nbytes = distinct * d * v.element_size() + q.numel() * 4 + 2 * ids.numel() * 4
-    stats = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-             **bound(nbytes, 2.0 * b * c * d), "library_ms": lib}
-    log(f"[times] gather_dots {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-        f"{p2:.4f} ms, library (row gather + torch.bmm, two calls) {lib:.4f} ms; {distinct} "
-        f"distinct rows of {b * c} ({distinct * d * v.element_size() / 1e6:.1f} MB; every "
-        f"candidate read {b * c * d * v.element_size() / 1e6:.1f} MB); bound "
-        f"{stats['bound_ms']:.4f} ms by {stats['bound_by']} (B={b}, C={c}, D={d}, {v.dtype})")
+    distinct = int(torch.unique(ids.clamp(0, n - 1)).numel())
+    esize = v.element_size()
+    nbytes = distinct * d * esize + q.numel() * 4 + 2 * ids.numel() * 4
+    stats = {"ms": sum(t[route]) / 2, "plain_ms": sum(t["plain"]) / 2,
+             **bound(nbytes, 2.0 * b * c * d), "library_ms": lib, "rule_picks": route,
+             "pairs_ms": sum(t["pairs"]) / 2, "pairs_per_distinct_row": b * c / distinct}
+    tile = (c + 31) // 32
+    moved = {"pairs": b * c * d * esize + b * tile * d * 4}
+    line = ""
+    if "grouped" in routes:
+        pu, _ = group_check(ids, n)
+        dev = device_ms(lambda: gather.gather_dots(q, v, ids, route="grouped"))
+        names = {"group": ("memset", "dedup_count", "offsets", "scatter", "elementwise"),
+                 "kernel": ("grouped_kernel",), "expand": ("expand_kernel",)}
+        split = {k: sum(ms_ for key, ms_ in dev.items() if any(w in key.lower() for w in ws))
+                 for k, ws in names.items()}
+        grid = min(torch.cuda.get_device_properties(0).multi_processor_count,
+                   -(-b * c // 2048))
+        dp = -(-d // 64) * 64
+        moved["grouped"] = (pu * d * esize + grid * min(b, gather.GROUP_QUERIES) * dp * 2)
+        stats.update({"grouped_ms": sum(t["grouped"]) / 2, "grouping_device_ms": split["group"],
+                      "grouped_kernel_device_ms": split["kernel"],
+                      "expand_device_ms": split["expand"], "distinct_pairs": pu})
+        line = (f"; grouped {t['grouped'][0]:.4f} / {t['grouped'][1]:.4f} ms (device: grouping "
+                f"pass {split['group']:.4f} incl. the bf16 cast of q, kernel "
+                f"{split['kernel']:.4f}, expand {split['expand']:.4f}); {pu} distinct (query, "
+                f"row) pairs of {b * c} ({b * c / max(pu, 1):.2f} copies each)")
+    stats["bytes_into_sms"] = moved
+    log(f"[times] gather_dots {label} (B={b}, C={c}, D={d}, {v.dtype}; rule picks {route}): "
+        f"pairs (the parent's kernel) {t['pairs'][0]:.4f} / {t['pairs'][1]:.4f} ms{line}; "
+        f"plain {t['plain'][0]:.4f} / {t['plain'][1]:.4f} ms, library (row gather + torch.bmm, "
+        f"two calls) {lib:.4f} ms; {distinct} distinct rows of {b * c} pairs "
+        f"({b * c / distinct:.2f} pairs a row; {distinct * d * esize / 1e6:.1f} MB; every "
+        f"candidate read {b * c * d * esize / 1e6:.1f} MB); bytes into the SMs, estimated from "
+        f"the counts: " + ", ".join(f"{k} {x / 1e6:.1f} MB" for k, x in moved.items())
+        + f"; bound {stats['bound_ms']:.4f} ms by {stats['bound_by']}")
+    return stats
+
+
+def route_crossover(q, v, ids):
+    """Both routes in turns (pairs, grouped, grouped, pairs) over the first
+    B rows of a real build chunk, C = 576: where the rule's threshold
+    (GROUPED_MIN_PAIRS) should sit."""
+    from grape_vector_db_tpu_torch.ops import gather
+
+    rows = []
+    for b in (256, 512, 768, 1024, 1536, 2048):
+        qb, ib = q[:b].contiguous(), ids[:b].contiguous()
+        t = {"pairs": [], "grouped": []}
+        for r in ("pairs", "grouped", "grouped", "pairs"):
+            t[r].append(cuda_ms(lambda: gather.gather_dots(qb, v, ib, route=r), 10))
+        rows.append((b * ib.shape[1], sum(t["pairs"]) / 2, sum(t["grouped"]) / 2))
+    log("[times] gather_dots routes by pairs (real build ids, C=576, bf16; in turns): "
+        + "; ".join(f"{p}: pairs {a:.4f} ms, grouped {g:.4f} ms" for p, a, g in rows)
+        + f"; the rule's threshold {gather.GROUPED_MIN_PAIRS} pairs")
+    return rows
+
+
+def group_times(ids, n):
+    """The grouping pass alone at the build shape: its device time (kernels
+    and memset, torch.profiler) against its plain version's; bound: read the
+    ids, write rep and the distinct pairs' order."""
+    from grape_vector_db_tpu_torch.ops import gather
+
+    dev = device_ms(lambda: gather.group_pairs(ids, n))
+    ms_ = sum(x for key, x in dev.items()
+              if any(w in key.lower() for w in ("memset", "dedup_count", "offsets", "scatter")))
+    plain = cuda_ms(lambda: gather.group_pairs_ref(ids, n), 3)
+    pu = int(gather.group_pairs(ids, n)[2].sum())
+    stats = {"max_abs_err": 0.0, "ms": ms_, "plain_ms": plain,
+             **bound(ids.numel() * 8 + pu * 4, 0.0), "library_ms": None}
+    log(f"[times] gather grouping pass [{ids.shape[0]},{ids.shape[1]}] over {n} rows: device "
+        f"{ms_:.4f} ms (memset, dedup + count, offsets, scatter), plain version (torch sort, "
+        f"argsort) {plain:.4f} ms; bound {stats['bound_ms']:.4f} ms by bytes")
     return stats
 
 
 def gather_phase(idx, beam_calls):
     """B11 against its plain version at the three shapes of the graph path,
     with the ids of a real entry step and beam iteration (``beam_calls``)
-    and of a real build round (the NN-descent join over the built graph):
-    Gaussian rows within 1e-4 of the |q.v| sum (bf16 and f32 storage), small
-    integers equal value for value, ragged shapes equal, out-of-range ids
-    clamped alike. Returns the stats of the beam shape and the build shape."""
+    and of a real build round (the NN-descent join over the built graph),
+    through each route a call can take (pairs; in bf16 storage also
+    grouped): Gaussian rows within 1e-4 of the |q.v| sum (bf16 and f32
+    storage), small integers equal value for value, two grouped calls equal
+    bit for bit, ragged shapes, a hot row, query groups and out-of-range ids
+    alike. Returns the stats of the beam shape, the build shape and the
+    grouping pass."""
     from grape_vector_db_tpu_torch.ops import gather
     from grape_vector_db_tpu_torch.ops.distance import prepare_queries
     from grape_vector_db_tpu_torch.ops.graph import join_candidates
@@ -1857,31 +1999,47 @@ def gather_phase(idx, beam_calls):
     errs = {}
     for label, (q, ids) in shapes.items():
         b, c = ids.shape
-        errs[label] = max(gather_check(f"{label} bf16", q, v, ids),
+        errs[label] = max(max(gather_check(f"{label} bf16", q, v, ids, r) for r in routes_of(v)),
                           gather_check(f"{label} f32 storage", q, v.float(), ids))
         qi = torch.from_numpy(rng.integers(-3, 4, (b, DIM)).astype(np.float32)).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
-            gather_exact(f"{label} integer {dtype}", qi, vi.to(dtype), ids)
+            for r in routes_of(vi.to(dtype)):
+                gather_exact(f"{label} integer {dtype}", qi, vi.to(dtype), ids, r)
+        g1 = gather.gather_dots(q, v, ids, route="grouped")
+        require(torch.equal(g1, gather.gather_dots(q, v, ids, route="grouped")),
+                f"gather_dots {label}: two grouped calls differ")
         log(f"[kernels] gather_dots {label}: q [{b},{DIM}] x ids [{b},{c}] (real ids) over "
-            f"[{n},{DIM}]: max_abs_err {errs[label]:.3g} (bf16 and f32 storage, within 1e-4 "
-            f"of the |q.v| sum); small integers equal value for value (bf16 and f32)")
+            f"[{n},{DIM}], rule picks {gather.gather_route(b, c, DIM, v.dtype)}: max_abs_err "
+            f"{errs[label]:.3g} (bf16 through both routes and f32 storage, within 1e-4 of the "
+            f"|q.v| sum); small integers equal value for value (bf16 both routes, f32); two "
+            f"grouped calls equal bit for bit")
+    hot = torch.full((2048, 576), 7, dtype=torch.int32, device=dev)
+    q_hot = torch.from_numpy(rng.integers(-3, 4, (2048, DIM)).astype(np.float32)).to(dev)
+    gather_exact("hot row B=2048 C=576 bf16", q_hot, vi.to(torch.bfloat16), hot, "grouped")
+    many = torch.from_numpy(rng.integers(0, n, (1300, 64)).astype(np.int32)).to(dev)
+    q_many = torch.from_numpy(rng.integers(-3, 4, (1300, DIM)).astype(np.float32)).to(dev)
+    gather_exact("three query groups B=1300 C=64 bf16", q_many, vi.to(torch.bfloat16), many,
+                 "grouped")
     for d in (100, 1536, 1):
         vr = torch.from_numpy(rng.integers(-3, 4, (300, d)).astype(np.float32)).to(dev)
         qr = torch.from_numpy(rng.integers(-3, 4, (5, d)).astype(np.float32)).to(dev)
         ids = torch.from_numpy(rng.integers(0, 300, (5, 37)).astype(np.int32)).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
-            gather_exact(f"ragged B=5 C=37 D={d} {dtype}", qr, vr.to(dtype), ids)
+            for r in routes_of(vr.to(dtype)):
+                gather_exact(f"ragged B=5 C=37 D={d} {dtype}", qr, vr.to(dtype), ids, r)
     wild = torch.tensor([[0, -1, 5, n], [n - 1, -7, n + 60, -1], [1, 2, 3, 1 << 30],
                          [-(1 << 30), 4, 0, 7]], dtype=torch.int32, device=dev)
     qw = torch.from_numpy(rng.integers(-3, 4, (4, DIM)).astype(np.float32)).to(dev)
     for dtype in (torch.bfloat16, torch.float32):
         vw = vi.to(dtype)
-        gather_exact(f"out-of-range ids {dtype}", qw, vw, wild)
-        require(torch.equal(gather.gather_dots(qw, vw, wild),
-                            gather.gather_dots(qw, vw, wild.clamp(0, n - 1))),
-                "gather_dots: out-of-range ids do not clamp")
-    log("[kernels] gather_dots ragged (B=5, C=37, D=100, 1536 and 1; bf16 and f32): equal; "
-        "negative and too-large ids clamp to rows 0 and N-1 in kernel and plain version alike")
+        for r in routes_of(vw):
+            gather_exact(f"out-of-range ids {dtype}", qw, vw, wild, r)
+            require(torch.equal(gather.gather_dots(qw, vw, wild, route=r),
+                                gather.gather_dots(qw, vw, wild.clamp(0, n - 1), route=r)),
+                    f"gather_dots ({r}): out-of-range ids do not clamp")
+    log("[kernels] gather_dots hot row (2048 x 576 ids all 7), three query groups (B=1300), "
+        "ragged (B=5, C=37, D=100, 1536 and 1; bf16 and f32), both routes: equal; negative and "
+        "too-large ids clamp to rows 0 and N-1 in kernel and plain version alike")
     del vi
     out = {}
     for label, key, reps in (("beam", "gather_dots", (20, 5)), ("entry", "entry", (20, 5)),
@@ -1889,6 +2047,9 @@ def gather_phase(idx, beam_calls):
         q, ids = shapes[label]
         out[key] = {"max_abs_err": errs[label], **gather_times(label, q, v, ids, *reps)}
     out["gather_dots"]["entry"] = out.pop("entry")
+    q_build, ids_build = shapes["build"]
+    out["gather_dots@build"]["routes_by_pairs"] = route_crossover(q_build, v, ids_build)
+    out["gather_group"] = group_times(ids_build, n)
     return out
 
 
@@ -1929,13 +2090,19 @@ def graph_path(corpus):
     db.optimize()
     torch.cuda.synchronize()
     optimize_s = time.perf_counter() - t0
-    build_launches = read_counts()["gather_dots"]
+    counts = read_counts()
+    build_launches, build_grouped = counts["gather_dots"], counts["gather_dots_grouped"]
+    group_launches = counts["gather_group"]
     require(build_launches > 0, "the graph build never launched gather_dots")
+    require(build_grouped > 0 and group_launches == build_grouped,
+            f"the graph build took the grouped route {build_grouped} times with "
+            f"{group_launches} grouping passes")
     require(len(idx) == rows and idx.get_stats().extra["fresh"] == 0,
             f"graph: {len(idx)} rows, fresh {idx.get_stats().extra['fresh']}")
     log(f"[graph] ingested {rows} in {ingest_s:.2f} s ({rows / ingest_s:.0f} docs/s) with "
         f"{ingest_builds} builds; optimize() (one more full build) {optimize_s:.2f} s; "
-        f"B11 launches in the builds {build_launches}; {idx.get_stats().memory_usage_mb:.0f} MB")
+        f"B11 launches in the builds {build_launches} ({build_grouped} through the grouped route, "
+        f"each after one grouping pass); {idx.get_stats().memory_usage_mb:.0f} MB")
 
     builds = idx.builds
     qs = corpus.queries
@@ -1962,13 +2129,16 @@ def graph_path(corpus):
     up_hits = to_rows(db.vector_search_batch(newv[:32], 1))
     old_hits = to_rows(db.vector_search_batch(corpus.x[up_rows[:32]], 10))
     torch.cuda.synchronize()
-    launches = read_counts()["gather_dots"]
+    counts = read_counts()
+    launches = counts["gather_dots"]
     require(launches > 0, "graph search never launched gather_dots")
+    require(counts["gather_dots_grouped"] == 0,
+            "graph search took the grouped route (the rule gives the beam the pairs route)")
     require(idx.builds == builds and fresh == 1000,
             f"graph: a build ran inside the search window, or fresh holds {fresh}")
     log(f"[graph] searches done: batch B={BATCH} k=10, 4 x k=10, 8 x filtered k=10, deleted "
         f"{n_del} (the top hits of 16 queries), batch again, upserted 1000 rows into the fresh "
-        f"region, 32 + 32 searches; B11 launches {launches}")
+        f"region, 32 + 32 searches; B11 launches {launches} (all through the pairs route)")
 
     for name, hits in (("batch", batch), ("single", single)):
         for r, row in enumerate(hits):
@@ -2055,7 +2225,7 @@ def graph_path(corpus):
     log(f"[time] graph phase {phase_s:.1f} s (budget {GRAPH_BUDGET_S:.0f} s"
         f"{', over it' if phase_s > GRAPH_BUDGET_S else ''})")
     db.close()
-    return launches, build_launches, stats
+    return launches, build_launches, group_launches, stats
 
 
 def main():
@@ -2098,14 +2268,18 @@ def main():
         log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     clustered = corpora["clustered"]
     del corpora
-    (launches["gather_dots"], launches["gather_dots@build"], graph_stats) = graph_path(
+    (launches["gather_dots"], launches["gather_dots@build"], launches["gather_group"],
+     graph_stats) = graph_path(
         SmallCorpus("clustered", clustered.x[:GRAPH_ROWS], clustered.queries))
     kernel_stats.update(graph_stats)
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], **kernel_stats[name]}
-        for name, (src, tpu) in KERNELS.items()]}), flush=True)
+    # a phase's stats never overwrite the identifying keys
+    entries = [{**kernel_stats[name], "name": name, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": launches[name]}
+               for name, (src, tpu) in KERNELS.items()]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    require(all(k in e for e in entries for k in keys), "a kernel entry lacks a key")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -639,21 +639,34 @@ def _gather_inputs(g, b, c, d, n, integer):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,c,d,n", [(128, 256, 768, 20000), (128, 64, 768, 20000),
                                      (2048, 576, 768, 20000), (5, 37, 100, 300),
-                                     (5, 37, 1536, 300), (1, 1, 1, 1)])
+                                     (5, 37, 1536, 300), (1, 1, 1, 1),
+                                     (1300, 64, 768, 20000), (64, 100, 770, 3000),
+                                     (64, 100, 100, 3000)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("integer", [True, False])
-def test_gather_dots_kernel_matches_plain(cuda, b, c, d, n, dtype, integer):
+@pytest.mark.parametrize("route", [None, "pairs", "grouped"])
+def test_gather_dots_kernel_matches_plain(cuda, b, c, d, n, dtype, integer, route):
     """B11 against its plain version at the beam, entry and build shapes
-    (D = 768) and ragged ones (D = 100: rows not in 16-byte chunks; 1536):
-    small integers give exact sums, so equal; Gaussian floats within 1e-5
-    of each entry's sum of |q_d v_d| (f32 sums in another order)."""
+    (D = 768), through the route the rule picks and through each route
+    (the grouped one is bf16's: f32 storage raises there), and at ragged
+    shapes (D = 100 and 770: not whole slices; 1536; 1300 queries: three
+    query groups): small integers give exact sums, so equal; Gaussian floats
+    within 1e-5 of each entry's sum of |q_d v_d| (f32 sums in another
+    order)."""
     g = np.random.default_rng(b + c + d)
     q, v, ids = (t.to(cuda) for t in _gather_inputs(g, b, c, d, n, integer))
     v = v.to(getattr(torch, dtype))
+    if route == "grouped" and dtype == "float32":
+        with pytest.raises(ValueError, match="bf16"):
+            tgat.gather_dots(q, v, ids, route=route)
+        return
     before = tgat.LAUNCHES["gather_dots"]
-    got = tgat.gather_dots(q, v, ids)
+    grouped = tgat.LAUNCHES["gather_dots_grouped"]
+    got = tgat.gather_dots(q, v, ids, route=route)
     torch.cuda.synchronize()
     assert tgat.LAUNCHES["gather_dots"] == before + 1
+    took = route or tgat.gather_route(b, c, d, v.dtype)
+    assert tgat.LAUNCHES["gather_dots_grouped"] == grouped + (took == "grouped")
     want = tgat.gather_dots_ref(q, v, ids)
     if integer:
         assert torch.equal(got, want)
@@ -661,6 +674,114 @@ def test_gather_dots_kernel_matches_plain(cuda, b, c, d, n, dtype, integer):
         qr = q.to(v.dtype).float().abs()
         scale = torch.bmm(v.float().abs()[ids.long()], qr[:, :, None])[:, :, 0]
         assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def _gather_ids(kind, g, b, c, n):
+    """Ids that stress the grouping: one hot row, every pair on its own row,
+    heavy repeats within each list, ids far outside [0, n)."""
+    if kind == "hot":
+        return np.full((b, c), 7, np.int32)
+    if kind == "distinct":
+        return g.permutation(n)[:b * c].reshape(b, c).astype(np.int32)
+    if kind == "repeats":
+        return (g.integers(0, 8, (b, c)) * 97 % n).astype(np.int32)
+    ids = g.integers(-3 * n, 4 * n, (b, c)).astype(np.int32)
+    ids[0, :4] = [-(1 << 31), (1 << 31) - 1, -1, n]
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,c,n", [("hot", 2048, 576, 20000), ("distinct", 128, 256, 40000),
+                                        ("repeats", 256, 576, 20000), ("wild", 64, 50, 300)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_gather_dots_grouping_cases(cuda, kind, b, c, n, dtype, integer):
+    """Each route a call can take (pairs; grouped for bf16) against the
+    plain version on ids that stress the grouping: integers equal, Gaussian
+    floats within 1e-5 of the |q.v| sum; two calls equal bit for bit."""
+    g = np.random.default_rng(len(kind) + b)
+    q, v, _ = (t.to(cuda) for t in _gather_inputs(g, b, 1, 768, n, integer))
+    v = v.to(getattr(torch, dtype))
+    ids = torch.from_numpy(_gather_ids(kind, g, b, c, n)).to(cuda)
+    want = tgat.gather_dots_ref(q, v, ids)
+    qr = q.to(v.dtype).float().abs()
+    scale = tgat.gather_dots_ref(qr, v.float().abs(), ids)
+    for route in ("pairs", "grouped") if dtype == "bfloat16" else ("pairs",):
+        got = tgat.gather_dots(q, v, ids, route=route)
+        assert torch.equal(got, tgat.gather_dots(q, v, ids, route=route))
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["pairs", "grouped"])
+@pytest.mark.parametrize("b,c", [(0, 37), (5, 0)])
+def test_gather_dots_empty_launches_nothing(cuda, route, b, c):
+    q = torch.zeros((b, 64), device=cuda)
+    v = torch.ones((10, 64), device=cuda, dtype=torch.bfloat16)
+    ids = torch.zeros((b, c), dtype=torch.int32, device=cuda)
+    before = dict(tgat.LAUNCHES)
+    out = tgat.gather_dots(q, v, ids, route=route)
+    assert out.shape == (b, c) and out.dtype == torch.float32
+    assert tgat.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,c,n", [("wild", 64, 50, 300), ("hot", 2048, 576, 20000),
+                                        ("repeats", 1300, 64, 20000), ("distinct", 3, 3000, 9000),
+                                        ("wild", 0, 5, 30), ("wild", 5, 0, 30)])
+def test_group_pairs_kernel_matches_plain(cuda, kind, b, c, n):
+    """The card's grouping pass against its plain version: rep equal (a list
+    longer than MAX_DEDUP_COLUMNS keeps every copy on the card), the same
+    first copies, each (query group, row) key one contiguous run of
+    ``order``, the query groups in order."""
+    g = np.random.default_rng(b + c)
+    ids = torch.from_numpy(_gather_ids(kind, g, b, c, n)).to(cuda) if b * c else \
+        torch.zeros((b, c), dtype=torch.int32, device=cuda)
+    before = tgat.LAUNCHES["gather_group"]
+    order, rep, totals = tgat.group_pairs(ids, n)
+    assert tgat.LAUNCHES["gather_group"] == before + 1
+    ref_order, ref_rep, ref_totals = tgat.group_pairs_ref(ids, n)
+    cols = torch.arange(c, device=cuda).expand(b, c)
+    if c > tgat.MAX_DEDUP_COLUMNS:
+        ref_rep = cols.to(torch.int32)
+        first = torch.arange(b * c, device=cuda)
+        ref_totals = torch.bincount(first // c // tgat.GROUP_QUERIES,
+                                    minlength=ref_totals.numel()).to(torch.int32)
+    else:
+        first = torch.sort(ref_order[:int(ref_totals.sum())].long()).values
+    assert torch.equal(rep, ref_rep) and torch.equal(totals, ref_totals)
+    got = order[:int(totals.sum())].long()
+    assert torch.equal(torch.sort(got).values, first)
+    rows = (ids.clamp(0, n - 1).long()
+            + (torch.arange(b, device=cuda) // tgat.GROUP_QUERIES * n)[:, None]).reshape(-1)
+    keys = rows[got]
+    if keys.numel():
+        assert int((keys[1:] != keys[:-1]).sum()) + 1 == int(torch.unique(keys).numel())
+        assert bool((keys[1:] // n >= keys[:-1] // n).all())
+
+
+@pytest.mark.cuda
+def test_gather_dots_grouped_raises(cuda, monkeypatch):
+    """The grouped route takes bf16 storage only, and never falls back to the
+    plain version: a failed build raises."""
+    g = np.random.default_rng(12)
+    q, v, ids = (t.to(cuda) for t in _gather_inputs(g, 4, 8, 96, 50, True))
+    with pytest.raises(ValueError, match="bf16"):
+        tgat.gather_dots(q, v, ids, route="grouped")
+    with pytest.raises(ValueError, match="route"):
+        tgat.gather_dots(q, v, ids, route="sorted")
+
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(tgat, "build_kernels", no_library)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tgat.gather_dots(q, v.to(torch.bfloat16), ids, route="grouped")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tgat.group_pairs(ids, 50)
 
 
 @pytest.mark.cuda
