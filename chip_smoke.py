@@ -26,14 +26,17 @@ the port's paths through ``VectorDatabase`` on the card:
 - the IVF family at the repository's 1M IVF configuration (bench.py:483-506:
   1,048,576 x 768 clustered rows, 16,384 Gaussian centres + 0.25 noise,
   nlist 4096, nprobe 16): ``ivf`` runs B3, ``ivf_int8`` B4 and ``ivf_int4``
-  B5 (``csrc/ivf_probe.cu``) through ingest, search before and after
+  B5 (``csrc/ivf_probe.cu``; B5 is a grouping pass that sorts the probe
+  cells by list, then a kernel that streams each list once for up to 8 of
+  its cells on the bf16 tensor cores) through ingest, search before and after
   ``optimize()``, filtered search on both planner routes, the streaming
   exhaustive tier, deletes and search again, each against numpy oracles;
 - the binary kind at 1,048,576 x 768 on the flat path's Gaussian corpus:
   ``VectorDatabase(kind="binary")`` with its defaults (asym prescan) and a
   ``BinaryDeviceIndex(hamming_impl="popcount", prescan="hamming")``, whose
-  prescan runs B6 (``csrc/hamming.cu``), with Hamming-only search, the
-  codes-only configuration, a filtered search and deletes;
+  prescan runs B6 (``csrc/hamming.cu``, on the b1 tensor cores), with
+  Hamming-only search, the codes-only configuration, a filtered search and
+  deletes;
 - the kernel-free kinds at 262,144 rows each (a cut of scale, for the time
   limit): ``int8`` and ``pq`` on the Gaussian corpus, ``ivf_pq`` with each
   resident plane on the clustered IVF corpus (nlist 1024), and the projected
@@ -52,11 +55,18 @@ the port's paths through ``VectorDatabase`` on the card:
   ids of a real build round and a real search and timed in turns with the
   other (the pairs route is the parent tree's kernel).
 
+With ``--parent DIR`` (the parent commit's tree, unpacked), the hamming
+phase and the int4 probe's main shapes also build the parent's
+``csrc/hamming.cu`` and ``csrc/ivf_probe.cu`` and time the parent's kernels
+in turns with this tree's (parent, change, change, parent); without it those
+comparisons are skipped and logged as such.
+
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Every phase raises on failure. Earlier lines report each phase;
 the line before the last is a JSON object with one entry per kernel (B4/B5's
 entries carry their launches on the IVF path; the projected path's own run
-at D = 384 sits under their "d384" key; B11 has one entry for the graph
+at D = 384 sits under their "d384" key; B5's grouping pass has its own
+entry, "ivf_group"; B11 has one entry for the graph
 search, with its entry step's shape under "entry", one for the build,
 "gather_dots@build", and one for the build's grouping pass, "gather_group");
 the last line is the JSON result. Without a CUDA
@@ -66,9 +76,12 @@ no result.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
+import ctypes
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -138,6 +151,9 @@ KERNELS = {
                        "grape_vector_db_tpu/ops/ivf_pallas.py:331"),
     "ivf_probe_int4": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
                        "grape_vector_db_tpu/ops/ivf_pallas.py:477"),
+    # B5's grouping pass (the int4 probe's cells sorted by list) before its kernel
+    "ivf_group": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
+                  "grape_vector_db_tpu/ops/ivf_pallas.py:477"),
     "hamming": ("grape_vector_db_tpu_torch/csrc/hamming.cu",
                 "grape_vector_db_tpu/ops/hamming_pallas.py:37"),
     # B11 on the graph path: the search's launches (entry step, beam) and,
@@ -150,7 +166,8 @@ KERNELS = {
     "gather_group": ("grape_vector_db_tpu_torch/csrc/gather.cu",
                      "grape_vector_db_tpu/ops/gather_pallas.py:61"),
 }
-POPC_PER_CLOCK_PER_SM = 16  # __popc issue rate, CUDA programming guide, cc 9.0
+# the parent commit's tree (--parent): its B5 / B6 kernels are timed in turns
+PARENT = None
 # IVF kind -> the probe kernel its main search runs
 IVF_KERNEL = {"ivf": "ivf_probe", "ivf_int8": "ivf_probe_int8", "ivf_int4": "ivf_probe_int4"}
 
@@ -210,8 +227,9 @@ def ptxas_summary(build_log: str):
         mx = re.search(r"Compiling entry function '.*segmax_max_kernelILi(\d)ELi(\d)EE", line)
         m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)ELi(\d)EE", line)
         p = re.search(r"Compiling entry function '.*probe_kernelILi(\d)E+v", line)
+        i4 = re.search(r"Compiling entry function '.*int4_(probe|group)_kernel", line)
         f = re.search(r"Compiling entry function '.*fill_kernel", line)
-        h = re.search(r"Compiling entry function '.*hamming_kernel", line)
+        h = re.search(r"Compiling entry function '.*hamming_mma_kernel", line)
         g = re.search(r"Compiling entry function '.*gather_dots_kernelILi(\d)ELb(\d)E", line)
         gg = re.search(r"Compiling entry function '.*grouped_kernelILb(\d)E", line)
         gp = re.search(r"Compiling entry function '.*group\d+(dedup_count|offsets|scatter|expand)"
@@ -224,8 +242,11 @@ def ptxas_summary(build_log: str):
             name = "fill_kernel (segmax4_sup's -inf start)"
         elif p:
             name = f"ivf_probe<{fmts[p[1]]}>"
+        elif i4:
+            name = ("ivf_probe_int4 (grouped, bf16 mma)" if i4[1] == "probe"
+                    else "ivf_group (int4 grouping pass)")
         elif h:
-            name = "hamming"
+            name = "hamming (b1 mma)"
         elif g:
             name = (f"gather_dots pairs<{fmts[g[1]]}, "
                     f"{'16-byte' if g[2] == '1' else 'element'} loads>")
@@ -261,6 +282,25 @@ def read_counts() -> dict:
 
 # -- set-up -----------------------------------------------------------------
 
+def parent_lib(name: str) -> ctypes.CDLL:
+    """The parent tree's ``csrc/<name>.cu`` (``--parent``), built with this
+    tree's nvcc flags into this tree's ``_build/``, with its C entry bound:
+    ``gvdb_hamming`` or ``gvdb_ivf_probe`` (whose format 3 is the parent's
+    int4 probe). Both of the parent's sources export
+    ``gvdb_cuda_error_string``, as ``_build.load`` expects."""
+    from grape_vector_db_tpu_torch.ops import _build
+
+    def bind(lib):
+        fn = lib.gvdb_hamming if name == "hamming" else lib.gvdb_ivf_probe
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] if name == "hamming" else
+                       [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+
+    return _build.load(f"parent_{name}", bind,
+                       os.path.join(PARENT, "grape_vector_db_tpu_torch", "csrc", f"{name}.cu"))
+
 
 def setup():
     if not torch.cuda.is_available():
@@ -280,10 +320,13 @@ def setup():
     t0 = time.perf_counter()
     builds = (segmax.build_kernels, segmax.build_max_kernel, ivf.build_kernels,
               hamming.build_kernels, gather.build_kernels)
+    if PARENT:
+        builds += (lambda: parent_lib("hamming"), lambda: parent_lib("ivf_probe"))
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source
         for fut in [pool.submit(b) for b in builds]:
             fut.result()
-    log(f"[setup] kernels built in {time.perf_counter() - t0:.2f} s (in parallel)")
+    log(f"[setup] kernels built in {time.perf_counter() - t0:.2f} s (in parallel)"
+        + (f"; the parent's B5 and B6 from {PARENT}" if PARENT else ""))
     for name in ("segmax", "segmax_max", "ivf_probe", "hamming", "gather"):
         info = _build.BUILD_INFO[name]
         log(f"[setup] {name}: {info['library']}, {info['seconds']:.2f} s")
@@ -753,20 +796,36 @@ def probe_adversarial():
                     f"{name} {fmt} D={d}: nblocks 0 not honoured")
             log(f"[kernels] {name} {fmt} adversarial (ragged nblocks incl. 0, zero weights, "
                 f"duplicate probes, C={cap}, B={b}, P={p}, D={d}): every score equal")
+    # B5's groups: one list probed by 21 cells (split into groups of up to
+    # 8), every cell on one list, ids outside [0, L) (-1e9 on their cells),
+    # D = 32
+    for d, kind in ((32, "split"), (128, "one list"), (384, "bad ids")):
+        rng = np.random.default_rng(SEED + 11 + d)
+        n_lists, cap, b, p = 8, 128, 24, 6
+        x = rng.integers(-3, 4, (n_lists * cap, d)).astype(np.float32)
+        data = quantize_int4(torch.from_numpy(x).to(dev))[0].reshape(n_lists, cap, d // 2)
+        q = torch.from_numpy(rng.integers(-3, 4, (b, d)).astype(np.float32)).to(dev)
+        w = torch.from_numpy(rng.choice([0.0, 0.5, 1.0, 2.0], (n_lists, cap))
+                             .astype(np.float32)).to(dev)
+        nb = torch.tensor([2, 1, 0, 2, 1, 3, 2, -1], dtype=torch.int32, device=dev)
+        probe = torch.from_numpy(rng.integers(0, n_lists, (b, p)).astype(np.int32)).to(dev)
+        if kind == "split":
+            probe.view(-1)[:21] = 3
+        elif kind == "one list":
+            probe[:] = 5
+        else:
+            probe[0, 2], probe[3, 4], probe[7, 0] = -1, n_lists, 1 << 30
+        got = tivf.ivf_probe_scores_int4(q, probe, data, w, nb)
+        torch.cuda.synchronize()
+        bad = (probe < 0) | (probe >= n_lists)
+        want = tivf.ivf_probe_scores_int4_ref(q, probe, data, w, nb)
+        require(torch.equal(got, want) and bool((got[bad] == -1e9).all()),
+                f"ivf_probe_int4 {kind} D={d}: grouped scores differ from the plain version")
+        log(f"[kernels] ivf_probe_int4 grouping case '{kind}' (D={d}, B={b}, P={p}): every "
+            f"score equal")
 
 
 # -- B6 against its plain version -------------------------------------------------
-
-
-def popcount_rate() -> float:
-    """Popcounts a second the card can issue: 16 a clock a SM at the
-    maximum SM clock nvidia-smi reports. The floor of a kernel that counts
-    with __popc, not the card's bound for the function."""
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6, sms, mhz
 
 
 def random_words(gen, rows: int, w: int, dev) -> torch.Tensor:
@@ -776,28 +835,34 @@ def random_words(gen, rows: int, w: int, dev) -> torch.Tensor:
 
 def hamming_phase():
     """B6 against its plain version, integer for integer: at the main shape
-    (the binary index's 262,144-row scan chunk at B=128, D=768) and on
-    adversarial shapes and bit patterns; times the kernel, the plain
-    version and the mxu route (+-1 decode + torch.mm) in turns."""
+    (the binary index's 262,144-row scan chunk at B=128, D=768; and at
+    B=256) and on adversarial shapes and bit patterns; times the kernel, the
+    plain version and the mxu route (+-1 decode + torch.mm) in turns, and,
+    with --parent, the parent's kernel in turns with this one."""
     from grape_vector_db_tpu_torch.ops import hamming
+    from tools import mma_rates
 
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     b, c, w = BATCH, HAMMING_ROWS, DIM // 32
-    q = random_words(gen, b, w, dev)
+    q = random_words(gen, 2 * b, w, dev)
     codes = random_words(gen, c, w, dev)
-    got = hamming.hamming_popcount(q, codes)
-    torch.cuda.synchronize()
-    want = hamming.hamming_scores_ref(q, codes)
-    require(torch.equal(got, want), "hamming: kernel and plain version differ at the main shape")
-    mxu = hamming.hamming_scores(q, codes, impl="mxu")
-    require(torch.equal(mxu, want), "hamming: the mxu route differs from the plain version")
-    log(f"[kernels] hamming [{b},{w}] x [{c},{w}] int32 words: equal to the plain version "
-        f"and to the mxu route, integer for integer")
+    for bb in (b, 2 * b):
+        got = hamming.hamming_popcount(q[:bb], codes)
+        torch.cuda.synchronize()
+        want = hamming.hamming_scores_ref(q[:bb], codes)
+        require(torch.equal(got, want),
+                f"hamming: kernel and plain version differ at the main shape, B={bb}")
+    del got
+    mxu = hamming.hamming_scores(q[:b], codes, impl="mxu")
+    require(torch.equal(mxu, want[:b]), "hamming: the mxu route differs from the plain version")
+    del mxu, want
+    log(f"[kernels] hamming [{b},{w}] (and [{2 * b},{w}]) x [{c},{w}] int32 words: equal to "
+        f"the plain version and to the mxu route, integer for integer")
     patterns = {"zeros": 0, "ones": -1, "alternating": 0x55555555}
     n_cases = 0
     for bb, cc, ww in ((1, 1, 1), (129, c - 1, 24), (1, c - 1, 3), (129, 1, 3),
-                       (128, 4097, 1), (7, 513, 24)):
+                       (128, 4097, 1), (7, 513, 24), (130, 4098, 48), (3, 777, 70)):
         for pat in ("random", "zeros", "ones", "alternating"):
             qq = random_words(gen, bb, ww, dev)
             if pat == "random":
@@ -812,26 +877,54 @@ def hamming_phase():
             require(torch.equal(g2, hamming.hamming_scores_ref(qq, cw)),
                     f"hamming: B={bb} C={cc} W={ww} {pat}: kernel and plain version differ")
             n_cases += 1
-    log(f"[kernels] hamming adversarial: {n_cases} cases (C = {c - 1:,}, 4097, 513 and 1; "
-        f"W = 1, 3, 24; B = 1, 7, 128, 129; random, all-zero, all-one, alternating words): "
-        f"every distance equal")
-    (k1, k2), (p1, p2) = in_turns(lambda: hamming.hamming_popcount(q, codes),
-                                  lambda: hamming.hamming_scores_ref(q, codes), 20, 3)
-    l1 = cuda_ms(lambda: hamming.hamming_scores(q, codes, impl="mxu"), 10)
+    log(f"[kernels] hamming adversarial: {n_cases} cases (C = {c - 1:,}, 4098, 4097, 777, 513 "
+        f"and 1; W = 1, 3, 24, 48, 70; B = 1, 3, 7, 128, 129, 130; random, all-zero, all-one, "
+        f"alternating words): every distance equal")
+    qb = q[:b].contiguous()
+    (k1, k2), (p1, p2) = in_turns(lambda: hamming.hamming_popcount(qb, codes),
+                                  lambda: hamming.hamming_scores_ref(qb, codes), 20, 3)
+    l1 = cuda_ms(lambda: hamming.hamming_scores(qb, codes, impl="mxu"), 10)
     # The same distances are a +-1 product (dot = D - 2 * hamming, exact in
     # int8 with int32 sums): 2 operations a bit pair at the int8 tensor-core peak.
     nbytes = b * w * 4 + c * w * 4 + b * c * 4
     ops = 2.0 * b * c * w * 32
     stats = {"max_abs_err": 0.0, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
              **bound(nbytes, ops, INT8_OPS_PER_S), "library_ms": l1}
-    rate, sms, mhz = popcount_rate()
-    t_popc = b * c * w / rate * 1e3
+    rate = mma_rates.b1_rate()
+    n_mma = b * c * w / 1024
     log(f"[times] hamming: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, mxu "
         f"route (decode + torch.mm) {l1:.4f} ms; bound {stats['bound_ms']:.4f} ms by "
         f"{stats['bound_by']} (bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {ops:.3g} "
-        f"+-1 int8 operations {ops / INT8_OPS_PER_S * 1e3:.4f} ms); this design's __popc "
-        f"issue floor {t_popc:.4f} ms ({b * c * w:.3g} popcounts at {POPC_PER_CLOCK_PER_SM} a "
-        f"clock x {sms} SMs x {mhz:.0f} MHz) (B={b}, C={c}, W={w})")
+        f"+-1 int8 operations {ops / INT8_OPS_PER_S * 1e3:.4f} ms); the b1 route's "
+        f"tensor-core floor {n_mma / rate * 1e3:.4f} ms ({n_mma:.6g} mma.sync m16n8k256 at "
+        f"{rate:.4g} a second, measured by tools/mma_rates.py) (B={b}, C={c}, W={w})")
+    stats["b256_ms"] = cuda_ms(lambda: hamming.hamming_popcount(q, codes), 20)
+    log(f"[times] hamming at B={2 * b}: kernel {stats['b256_ms']:.4f} ms; bound "
+        f"{bound(2 * nbytes - c * w * 4, 2 * ops, INT8_OPS_PER_S)['bound_ms']:.4f} ms by bytes")
+    if PARENT:
+        stats["parent_ms"] = {}
+        for bb in (b, 2 * b):
+            qq = q[:bb].contiguous()
+            out = torch.empty((bb, c), dtype=torch.int32, device=dev)
+            lib = parent_lib("hamming")
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def parent():
+                lib.gvdb_hamming(0, qq.data_ptr(), codes.data_ptr(), out.data_ptr(), bb, c, w,
+                                 stream)
+
+            parent()
+            torch.cuda.synchronize()
+            require(torch.equal(out, hamming.hamming_popcount(qq, codes)),
+                    "hamming: the parent's kernel and this one differ")
+            (n1, n2), (o1, o2) = in_turns(lambda: hamming.hamming_popcount(qq, codes), parent,
+                                          20, 20)
+            stats["parent_ms"][f"B={bb}"] = [o1, n1, n2, o2]
+            log(f"[times] hamming against the parent's kernel at B={bb}, in turns (parent, "
+                f"change, change, parent): {o1:.4f} / {n1:.4f} / {n2:.4f} / {o2:.4f} ms")
+            del out
+    else:
+        log("[times] hamming: the parent's kernel not timed (no --parent)")
     return stats
 
 
@@ -1151,6 +1244,76 @@ def recall_full(hits, corpus, alive, k=10):
     return found / (k * len(hits))
 
 
+def int4_details(qp, probe, data, w, nb, label):
+    """B5 beyond its whole call: the grouping pass held against its plain
+    version (the same bin starts, the same cells in each bin) and timed
+    alone (its bound: read the ids, write the starts and the order; the
+    library call: one stable torch.sort of the ids); the call's device time
+    by kernel (torch.profiler); with --parent, the parent's per-cell kernel
+    in turns with this tree's whole call. Returns (extra stats of the
+    probe's entry, the grouping pass's entry)."""
+    from grape_vector_db_tpu_torch.ops import ivf as tivf
+
+    n_lists = w.shape[0]
+    order, start = tivf.group_cells(probe, n_lists)
+    o_ref, s_ref = tivf.group_cells_ref(probe, n_lists)
+    torch.cuda.synchronize()
+    require(torch.equal(start, s_ref), f"ivf_group {label}: bin starts differ")
+    bins = torch.where((probe >= 0) & (probe < n_lists), probe, n_lists).reshape(-1).long()
+    key = bins[order.long()] * probe.numel() + order.long()
+    require(torch.equal(torch.sort(key).values, bins[o_ref.long()] * probe.numel() + o_ref.long()),
+            f"ivf_group {label}: a bin holds other cells than the plain version's")
+    # the profiler can drop events, never add them: the largest of three
+    g_ms = max(sum(x for key_, x in device_ms(lambda: tivf.group_cells(probe, n_lists)).items()
+                   if "group_kernel" in key_) for _ in range(3))
+    g_plain = cuda_ms(lambda: tivf.group_cells_ref(probe, n_lists), 5)
+    flat = probe.reshape(-1)
+    g_lib = cuda_ms(lambda: torch.sort(flat, stable=True), 10)
+    group = {"max_abs_err": 0.0, "ms": g_ms, "plain_ms": g_plain,
+             **bound(probe.numel() * 8 + (n_lists + 2) * 4, 0.0), "library_ms": g_lib}
+    splits = []
+    for _ in range(3):
+        call = device_ms(lambda: tivf.ivf_probe_scores_int4(qp, probe, data, w, nb))
+        splits.append({"group_kernel": sum(x for k_, x in call.items() if "group_kernel" in k_),
+                       "probe_kernel": sum(x for k_, x in call.items()
+                                           if "int4_probe_kernel" in k_)})
+    split = max(splits, key=lambda x: sum(x.values()))
+    log(f"[times] ivf_probe_int4 {label}: device time of the call by kernel: grouping pass "
+        f"{split['group_kernel']:.4f} ms, kernel {split['probe_kernel']:.4f} ms; the grouping "
+        f"pass alone {g_ms:.4f} ms (plain {g_plain:.4f} ms, torch.sort of the ids {g_lib:.4f} "
+        f"ms; bound {group['bound_ms']:.5f} ms); {len(torch.unique(probe))} lists serve "
+        f"{probe.numel()} cells")
+    extra = {"device_split_ms": split}
+    if PARENT:
+        b, d = qp.shape
+        p_, c = probe.shape[1], w.shape[1]
+        out = torch.empty((b, p_, c), dtype=torch.float32, device=qp.device)
+        lib = parent_lib("ivf_probe")
+        qc, pc, nbc = qp.contiguous(), probe.contiguous(), nb.contiguous()
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def parent():
+            lib.gvdb_ivf_probe(3, 0, qc.data_ptr(), pc.data_ptr(), data.data_ptr(),
+                               w.data_ptr(), nbc.data_ptr(), out.data_ptr(), b, p_,
+                               n_lists, c, d, stream)
+
+        parent()
+        torch.cuda.synchronize()
+        new = tivf.ivf_probe_scores_int4(qp, probe, data, w, nb)
+        inv = new == -1e9
+        require(torch.equal(out == -1e9, inv), f"ivf_probe_int4 {label}: the parent's -1e9 differ")
+        diff = (out - new)[~inv].abs().max().item()
+        (n1, n2), (o1, o2) = in_turns(lambda: tivf.ivf_probe_scores_int4(qp, probe, data, w, nb),
+                                      parent, 20, 20)
+        extra["parent_ms"] = [o1, n1, n2, o2]
+        log(f"[times] ivf_probe_int4 {label} against the parent's per-cell kernel, in turns "
+            f"(parent, change, change, parent): {o1:.4f} / {n1:.4f} / {n2:.4f} / {o2:.4f} ms "
+            f"(the two agree within {diff:.3g})")
+    else:
+        log(f"[times] ivf_probe_int4 {label}: the parent's kernel not timed (no --parent)")
+    return extra, group
+
+
 def probe_main_shapes(kind, idx, corpus):
     """The path's probe kernel against its plain version at the main path's
     shapes, taken from the real index after optimize(); times both in turns
@@ -1197,8 +1360,12 @@ def probe_main_shapes(kind, idx, corpus):
     log(f"[times] {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
         f"reads per cell {per_cell / 1e9:.3f} GB, each probed list once {unique / 1e9:.3f} GB "
         f"({len(torch.unique(probe))} lists); bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    return {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b,
-            "library_ms": None}
+    stats = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b,
+             "library_ms": None}
+    if kind == "ivf_int4":
+        extra, stats["group"] = int4_details(qp, probe, data, w, nb, f"D={DIM}")
+        stats.update(extra)
+    return stats
 
 
 def search_breakdown(kind, idx, corpus, e2e_s, probe_ms):
@@ -1297,6 +1464,9 @@ def ivf_path(kind: str, corpus: Clustered, nlist: int):
         f"filtered at 90% and 10%, the streaming tier, deleted 1000, batch again; "
         f"kernel launches {launches}")
     require(launches[kname] > 0, f"the {kind} path never launched {kname}")
+    if kind == "ivf_int4":
+        require(launches["ivf_group"] == launches[kname],
+                "the ivf_int4 path's probes and grouping passes differ in number")
     require(compact_used, f"{kind}: the 10% filter did not take the compact tier")
 
     alive = np.ones(rows, bool)
@@ -1340,7 +1510,7 @@ def ivf_path(kind: str, corpus: Clustered, nlist: int):
     stats = probe_main_shapes(kind, idx, corpus)
     search_breakdown(kind, idx, corpus, med, stats["ms"])
     db.close()
-    return launches[kname], stats
+    return launches, stats
 
 
 # -- the binary kind ----------------------------------------------------------------
@@ -1789,8 +1959,12 @@ def proj_probe_shapes(name, idx, corpus):
         f"over [{n_lists},{cap},{data.shape[2]}] {data.dtype}: max_abs_err {err:.3g}")
     log(f"[times] {name} D={PROJ_DIM}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
         f"{p2:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    return {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b,
-            "library_ms": None}
+    stats = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b,
+             "library_ms": None}
+    if name == "ivf_probe_int4":
+        extra, stats["group"] = int4_details(qp, probe, data, w, nb, f"D={PROJ_DIM}")
+        stats.update(extra)
+    return stats
 
 
 # -- graph search (kind="graph") and B11 ----------------------------------------------
@@ -2229,6 +2403,11 @@ def graph_path(corpus):
 
 
 def main():
+    global PARENT
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", help="the parent commit's tree: time its B5 and B6 "
+                        "kernels in turns with this tree's")
+    PARENT = parser.parse_args().parent
     t_start = time.perf_counter()
     setup()
     kernel_stats = segmax_phase()
@@ -2243,7 +2422,8 @@ def main():
     torch.cuda.empty_cache()
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     corpus = Clustered(IVF_ROWS)
-    launches["ivf_probe"], kernel_stats["ivf_probe"] = ivf_path("ivf", corpus, IVF_NLIST)
+    counts, kernel_stats["ivf_probe"] = ivf_path("ivf", corpus, IVF_NLIST)
+    launches["ivf_probe"] = counts["ivf_probe"]
     torch.cuda.empty_cache()
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     if QUANT_ROWS != IVF_ROWS:
@@ -2251,7 +2431,11 @@ def main():
     log(f"[ivf] the quantized kinds run at {QUANT_ROWS} rows, nlist {QUANT_NLIST}")
     for kind in ("ivf_int8", "ivf_int4"):
         name = IVF_KERNEL[kind]
-        launches[name], kernel_stats[name] = ivf_path(kind, corpus, QUANT_NLIST)
+        counts, kernel_stats[name] = ivf_path(kind, corpus, QUANT_NLIST)
+        launches[name] = counts[name]
+        if kind == "ivf_int4":   # B5's grouping pass: one a probe
+            launches["ivf_group"] = counts["ivf_group"]
+            kernel_stats["ivf_group"] = kernel_stats[name].pop("group")
         torch.cuda.empty_cache()
         log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     del corpus
@@ -2262,8 +2446,12 @@ def main():
     for label, kind, cname, updates, kname in SMALL_KINDS:
         counts, stats = small_kind_path(label, kind, corpora[cname], updates, kname)
         if kname is not None:   # the projected path's own run of B4/B5, at D = R
+            group = stats.pop("group", None)
             kernel_stats[kname][f"d{PROJ_DIM}"] = {"path": kind, "launches": counts[kname],
                                                    **stats}
+            if group is not None:
+                kernel_stats["ivf_group"][f"d{PROJ_DIM}"] = {
+                    "path": kind, "launches": counts["ivf_group"], **group}
         torch.cuda.empty_cache()
         log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     clustered = corpora["clustered"]

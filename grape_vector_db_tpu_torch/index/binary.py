@@ -85,6 +85,8 @@ class BinaryDeviceIndex(FlatDeviceIndex):
         rescore_ratio: float = 0.1,
         max_rescore: int = 4096,
         search_mode: str = "exact",
+        recall_target: float = 0.99,
+        use_pallas: bool = True,
         keep_vectors: bool = True,
         hamming_impl: str = "mxu",
         prescan: str = "asym",
@@ -103,7 +105,7 @@ class BinaryDeviceIndex(FlatDeviceIndex):
         self._words = words_per_vector(dimension)
         super().__init__(dimension, metric=metric, storage_dtype=storage_dtype,
                          initial_capacity=initial_capacity, growth_factor=growth_factor,
-                         search_mode=search_mode, device=device)
+                         search_mode=search_mode, recall_target=recall_target, device=device)
 
     # -- storage hooks ---------------------------------------------------------
 

@@ -60,6 +60,7 @@ class FlatDeviceIndex(VectorIndex):
         initial_capacity: int = 4096,
         growth_factor: int = 2,
         search_mode: str = "exact",
+        recall_target: float = 0.99,
         device: str | torch.device = "cuda",
     ):
         if metric not in ("cosine", "dot", "euclidean"):
@@ -72,6 +73,7 @@ class FlatDeviceIndex(VectorIndex):
         self._dim = dimension
         self.metric = metric
         self.search_mode = search_mode
+        self.recall_target = recall_target   # accepted, unused: every selection is exact
         self.storage_dtype = _STORAGE_DTYPES[storage_dtype]
         self._initial_capacity = initial_capacity
         self._growth_factor = growth_factor

@@ -83,6 +83,8 @@ class GraphDeviceIndex(VectorIndex):
         expand: int = 8,
         rebuild_ratio: float = 0.25,
         search_mode: str = "exact",
+        recall_target: float = 0.99,
+        use_pallas: bool = True,
         device: str | torch.device = "cuda",
     ):
         self._dim = dimension
@@ -104,7 +106,7 @@ class GraphDeviceIndex(VectorIndex):
         self._graph_store = FlatDeviceIndex(
             dimension, metric=metric, storage_dtype=storage_dtype,
             initial_capacity=initial_capacity, growth_factor=growth_factor,
-            search_mode=search_mode, device=self.device)
+            search_mode=search_mode, recall_target=recall_target, device=self.device)
         self.neighbors: Optional[torch.Tensor] = None   # [nb_cap, degree] int32
         self.entries: Optional[torch.Tensor] = None     # [E] int32 (small graphs)
         self.centroids: Optional[torch.Tensor] = None   # [L, D] f32 (probe entries)
@@ -115,7 +117,7 @@ class GraphDeviceIndex(VectorIndex):
         self._fresh = FlatDeviceIndex(
             dimension, metric=metric, storage_dtype=storage_dtype,
             initial_capacity=1024, growth_factor=growth_factor,
-            search_mode=search_mode, device=self.device)
+            search_mode=search_mode, recall_target=recall_target, device=self.device)
         self.search_iters = max(4, self.pool // max(expand, 1))
         self.builds = 0
 

@@ -108,6 +108,8 @@ class IvfDeviceIndex(VectorIndex):
         train_size: int = 50_000,
         kmeans_iters: int = 10,
         search_mode: str = "exact",
+        recall_target: float = 0.99,
+        use_pallas: bool = True,
         device: str | torch.device = "cuda",
     ):
         if metric not in ("cosine", "dot", "euclidean"):
@@ -137,7 +139,7 @@ class IvfDeviceIndex(VectorIndex):
         self._overflow = FlatDeviceIndex(
             dimension, metric=metric, storage_dtype=storage_dtype,
             initial_capacity=1024, growth_factor=growth_factor,
-            search_mode=search_mode, device=self.device)
+            search_mode=search_mode, recall_target=recall_target, device=self.device)
         self._id_to_cell: Dict[str, Tuple[int, int]] = {}
         self._next_pos = np.zeros(nlist, dtype=np.int64)
         self._nblocks_cache: Optional[torch.Tensor] = None  # [L] int32; reset when _next_pos moves

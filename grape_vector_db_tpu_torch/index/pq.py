@@ -41,6 +41,7 @@ class PqDeviceIndex(FlatDeviceIndex):
         max_rescore: int = 4096,
         train_threshold: int = 1024,
         search_mode: str = "exact",
+        recall_target: float = 0.99,
         device: str | torch.device = "cuda",
     ):
         if n_sub is None:
@@ -55,7 +56,7 @@ class PqDeviceIndex(FlatDeviceIndex):
         self.codebooks: Optional[torch.Tensor] = None   # [S, 2^nbits, dsub] f32
         super().__init__(dimension, metric=metric, storage_dtype=storage_dtype,
                          initial_capacity=initial_capacity, growth_factor=growth_factor,
-                         search_mode=search_mode, device=device)
+                         search_mode=search_mode, recall_target=recall_target, device=device)
 
     @property
     def is_trained(self) -> bool:

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 __all__ = ["BUILD_INFO", "find_nvcc", "load"]
 
@@ -48,17 +48,19 @@ def find_nvcc() -> str:
         "CUDA toolkit")
 
 
-def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` (once per source hash) and load it. ``bind``
-    sets the argument and result types of the library's functions; every
-    library also exports ``gvdb_cuda_error_string(int)``."""
+def load(name: str, bind: Callable[[ctypes.CDLL], None],
+         src_path: Optional[str] = None) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` (or ``src_path``) once per source hash and
+    load it as library ``name``. ``bind`` sets the argument and result types
+    of the library's functions; every library also exports
+    ``gvdb_cuda_error_string(int)``."""
     with _LOCKS_LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        src_path = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
+        src_path = src_path or os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
         with open(src_path, "rb") as f:
             src = f.read()
         key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]

@@ -50,9 +50,9 @@ SEGMAX_MAX_BATCH = 256         # the kernels' batch cap
 SEGMAX_MAX_K = 64
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.Tensor:
     x = x.to(torch.float32)
-    n = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+    n = torch.linalg.vector_norm(x, dim=axis, keepdim=True)
     return x / torch.clamp(n, min=eps)
 
 
@@ -133,6 +133,7 @@ def scored_topk(
     metric: str = "cosine",
     chunk: int = 65536,
     mode: str = "exact",
+    recall_target: float = 0.99,
     mask: Optional[torch.Tensor] = None,  # [N] bool filter mask (True = allowed)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k scan over the whole shard.
@@ -144,7 +145,8 @@ def scored_topk(
     ``mask`` is fused into the same validity predicate the scan already
     applies, so a selective filter still returns the exact top-k over the
     allowed rows. Every ``mode`` is exact; only ``"exact"`` takes the
-    segment kernels, as in the reference's routing.
+    segment kernels, as in the reference's routing. ``recall_target`` is
+    the reference's knob for its approximate selection and is ignored.
     """
     n, d = vectors.shape
     b = queries.shape[0]

@@ -15,7 +15,8 @@ JAX array gives the port's codes, and back).
   to XLA.
 - ``"popcount"`` and ``"xla"``: the same integers as Sum_w popcount(q_w ^ c_w).
   On a CUDA tensor both launch the hand-written kernel in
-  ``csrc/hamming.cu`` (it replaces the Pallas ``_kernel`` of
+  ``csrc/hamming.cu``, a b1 tensor-core product (popc(q ^ c) = popc q +
+  popc c - 2 popc(q & c); it replaces the Pallas ``_kernel`` of
   ``ops/hamming_pallas.py``; the reference's XLA broadcast would allocate a
   ``[B, C, W]`` int32 plane, 3.2 GB a 262,144-row chunk at B=128, W=24); on
   a CPU tensor the plain version ``hamming_scores_ref`` runs.

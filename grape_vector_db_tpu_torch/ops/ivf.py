@@ -9,19 +9,24 @@ deleted cell). Invalid cells score -1e9; the selection turns them into -inf.
 
 The probe has two implementations of one contract for each storage format:
 
-- the hand-written CUDA kernels in ``csrc/ivf_probe.cu`` (one template:
-  bf16 and f32 rows replace ``_probe_kernel``, int8 codes
-  ``_probe_kernel_int8``, packed int4 ``_probe_kernel_int4``), built with
+- the hand-written CUDA kernels in ``csrc/ivf_probe.cu``, built with
   ``nvcc`` at first use (``ops/_build.py``) and called through a plain C
-  interface;
+  interface: one template for bf16 and f32 rows (``_probe_kernel``) and
+  int8 codes (``_probe_kernel_int8``), one block a cell; for packed int4
+  (``_probe_kernel_int4``) a grouping pass that sorts the cells by list
+  (``group_cells``), then a kernel that streams each list once for up to 8
+  of its cells and takes the product on the tensor cores;
 - the plain PyTorch versions ``ivf_probe_scores_ref``,
-  ``ivf_probe_scores_int8_ref`` and ``ivf_probe_scores_int4_ref``.
+  ``ivf_probe_scores_int8_ref``, ``ivf_probe_scores_int4_ref`` and
+  ``group_cells_ref``.
 
-``ivf_probe_scores*`` take the plain version only for tensors on the CPU;
-for a CUDA tensor they launch the kernel or raise. Each launch adds one to
-``LAUNCHES``. The reference's per-call VMEM chunking of the probe axis and the
-8-sublane broadcast of the weight planes were TPU artefacts and are gone:
-planes are ``[L, C]``.
+``ivf_probe_scores*`` and ``group_cells`` take the plain version only for
+tensors on the CPU; for a CUDA tensor they launch the kernel or raise. Each
+launch adds one to ``LAUNCHES`` (an int4 probe adds one to
+``"ivf_probe_int4"`` and one to ``"ivf_group"``, its grouping pass). The
+reference's per-call VMEM chunking of the probe axis and the 8-sublane
+broadcast of the weight planes were TPU artefacts and are gone: planes are
+``[L, C]``.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from grape_vector_db_tpu_torch.ops.distance import prepare_queries
 from grape_vector_db_tpu_torch.ops.int4 import unpack_int4_split
 
 __all__ = ["RB", "LAUNCHES", "reset_launch_counts", "build_kernels",
-           "nblocks_from_counts", "make_recip", "make_factor",
+           "nblocks_from_counts", "make_recip", "make_factor", "group_cells",
+           "group_cells_ref",
            "finalize_probe_topk",
            "ivf_probe_scores", "ivf_probe_scores_ref",
            "ivf_probe_scores_int8", "ivf_probe_scores_int8_ref",
@@ -51,7 +57,8 @@ NEG_INF = float("-inf")
 MAX_DIM = 12288
 
 #: Kernel launches per wrapper since the last reset (CUDA tensors only).
-LAUNCHES: Dict[str, int] = {"ivf_probe": 0, "ivf_probe_int8": 0, "ivf_probe_int4": 0}
+LAUNCHES: Dict[str, int] = {"ivf_probe": 0, "ivf_probe_int8": 0, "ivf_probe_int4": 0,
+                             "ivf_group": 0}
 
 
 def reset_launch_counts() -> None:
@@ -70,6 +77,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gvdb_ivf_probe.argtypes = (
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_void_p])
+    lib.gvdb_ivf_group.restype = ctypes.c_int
+    lib.gvdb_ivf_group.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2
+                                   + [ctypes.c_void_p] * 2)
+    lib.gvdb_ivf_int4_scratch_words.restype = ctypes.c_long
+    lib.gvdb_ivf_int4_scratch_words.argtypes = [ctypes.c_int] * 4
+    lib.gvdb_ivf_int4_order_word.restype = ctypes.c_long
+    lib.gvdb_ivf_int4_order_word.argtypes = [ctypes.c_int]
+    lib.gvdb_ivf_probe_int4.restype = ctypes.c_int
+    lib.gvdb_ivf_probe_int4.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def build_kernels() -> ctypes.CDLL:
@@ -77,9 +94,10 @@ def build_kernels() -> ctypes.CDLL:
     return _build.load("ivf_probe", _bind)
 
 
-# format code, bytes of a stored row per query dim, wrapper name
+# format code (none for int4: its own C entries), bytes of a stored row per
+# query dim, wrapper name
 _FORMATS = {"bf16": (0, 2.0, "ivf_probe"), "f32": (1, 4.0, "ivf_probe"),
-            "int8": (2, 1.0, "ivf_probe_int8"), "int4": (3, 0.5, "ivf_probe_int4")}
+            "int8": (2, 1.0, "ivf_probe_int8"), "int4": (None, 0.5, "ivf_probe_int4")}
 
 
 def _full_nblocks(l: int, c: int, device) -> torch.Tensor:
@@ -88,7 +106,8 @@ def _full_nblocks(l: int, c: int, device) -> torch.Tensor:
 
 def _launch(fmt: str, q: torch.Tensor, probe: torch.Tensor, data: torch.Tensor,
             w: torch.Tensor, nblocks: Optional[torch.Tensor]) -> torch.Tensor:
-    """Run the probe kernel for ``fmt``: [B, P, C] f32."""
+    """Run the probe kernel for ``fmt`` (int4: the grouping pass, then the
+    grouped kernel): [B, P, C] f32."""
     code, row_bytes_per_dim, name = _FORMATS[fmt]
     dev = data.device
     if dev.type != "cuda" or any(t.device != dev for t in (q, probe, w)):
@@ -118,14 +137,74 @@ def _launch(fmt: str, q: torch.Tensor, probe: torch.Tensor, data: torch.Tensor,
     lib = build_kernels()
     out = torch.empty((b, probe.shape[1], c), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gvdb_ivf_probe(code, dev.index or 0, qc.data_ptr(), pc.data_ptr(),
-                            data.data_ptr(), wc.data_ptr(), nb.data_ptr(), out.data_ptr(),
-                            b, probe.shape[1], l, c, d, stream)
+    if fmt == "int4":   # the grouping pass, then the grouped kernel: one C call
+        if qc.data_ptr() % 16:
+            qc = qc.clone()
+        scratch = torch.empty(lib.gvdb_ivf_int4_scratch_words(probe.numel(), l, b, d),
+                              dtype=torch.int32, device=dev)
+        rc = lib.gvdb_ivf_probe_int4(dev.index or 0, qc.data_ptr(), pc.data_ptr(),
+                                     data.data_ptr(), wc.data_ptr(), nb.data_ptr(),
+                                     out.data_ptr(), scratch.data_ptr(), b, probe.shape[1], l,
+                                     c, d, stream)
+        _raise_on(lib, rc, name)
+        LAUNCHES["ivf_group"] += 1
+    else:
+        rc = lib.gvdb_ivf_probe(code, dev.index or 0, qc.data_ptr(), pc.data_ptr(),
+                                data.data_ptr(), wc.data_ptr(), nb.data_ptr(), out.data_ptr(),
+                                b, probe.shape[1], l, c, d, stream)
+        _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _raise_on(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.gvdb_cuda_error_string(rc).decode()} ({rc})")
-    LAUNCHES[name] += 1
-    return out
+
+
+# -- the int4 probe's grouping pass -----------------------------------------------
+
+
+def group_cells_ref(probe: torch.Tensor, n_lists: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the grouping pass. The cells ``b * P + p`` of probe
+    [B, P] sorted by their list: bin ``l`` holds the cells probing list l,
+    bin ``n_lists`` those whose id lies outside ``[0, n_lists)``. Returns
+    ``order`` [B * P] int32, the cells in a stable order by bin, and
+    ``start`` [n_lists + 2] int32, bin k's first position (``start[k + 1] -
+    start[k]`` cells)."""
+    ids = probe.reshape(-1).to(torch.int64)
+    bins = torch.where((ids >= 0) & (ids < n_lists), ids, n_lists)
+    order = torch.argsort(bins, stable=True).to(torch.int32)
+    counts = torch.bincount(bins, minlength=n_lists + 1)
+    start = torch.zeros(n_lists + 2, dtype=torch.int64, device=probe.device)
+    start[1:] = torch.cumsum(counts, 0)
+    return order, start.to(torch.int32)
+
+
+def group_cells(probe: torch.Tensor, n_lists: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(order, start)`` as ``group_cells_ref`` defines them, except that on
+    the card the cells of one bin come in any order (a counting sort with
+    atomics). On a CUDA tensor the hand-written pass of ``csrc/ivf_probe.cu``
+    (one launch, counted in ``LAUNCHES["ivf_group"]``; the int4 probe runs
+    the same pass inside its own C call) or raises; on a CPU tensor
+    ``group_cells_ref``."""
+    if probe.device.type == "cpu":
+        return group_cells_ref(probe, n_lists)
+    n = probe.numel()
+    if probe.dtype != torch.int32 or n < 1 or n_lists < 1:
+        raise ValueError(f"group_cells: probe must be non-empty int32, got {probe.dtype} "
+                         f"{tuple(probe.shape)} over {n_lists} lists")
+    pc = probe.contiguous()
+    lib = build_kernels()
+    scratch = torch.empty(lib.gvdb_ivf_int4_scratch_words(n, n_lists, 0, 0), dtype=torch.int32,
+                          device=probe.device)
+    _raise_on(lib, lib.gvdb_ivf_group(
+        probe.device.index or 0, pc.data_ptr(), n, n_lists, scratch.data_ptr(),
+        torch.cuda.current_stream(probe.device).cuda_stream), "ivf_group")
+    LAUNCHES["ivf_group"] += 1
+    first = lib.gvdb_ivf_int4_order_word(n_lists)
+    return scratch[first:first + n], scratch[:n_lists + 2]
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -138,11 +217,14 @@ def _probe_ref(fmt: str, q: torch.Tensor, probe: torch.Tensor, data: torch.Tenso
                w: torch.Tensor, nblocks: Optional[torch.Tensor]) -> torch.Tensor:
     """The kernels' contract with gathers and einsums, a few queries at a
     time: q rounded to bf16 (not for f32 rows), f32 products, and for int4
-    the nibbles u in 0..15 with dot - 8 * sum(q) (``csrc/ivf_probe.cu``)."""
+    the nibbles u in 0..15 with dot - 8 * sum(q) (``csrc/ivf_probe.cu``); a
+    probe id outside [0, L) scores -1e9 on its whole cell."""
     b, d = q.shape
     l, c = w.shape
     p = probe.shape[1]
     probe = probe.to(torch.int64)
+    known = (probe >= 0) & (probe < l)                     # [B, P]
+    probe = torch.where(known, probe, 0)
     qf = q.to(torch.float32)
     if fmt != "f32":
         qf = qf.to(torch.bfloat16).to(torch.float32)
@@ -166,7 +248,8 @@ def _probe_ref(fmt: str, q: torch.Tensor, probe: torch.Tensor, data: torch.Tenso
         else:
             dots = torch.einsum("bd,bpcd->bpc", qs, rows.to(torch.float32))
         wr = w[pr]                                          # [bs, P, C]
-        live = (wr != 0) & (pos[None, None, :] < lim[pr][:, :, None])
+        live = ((wr != 0) & (pos[None, None, :] < lim[pr][:, :, None])
+                & known[b0:b0 + step, :, None])
         out[b0:b0 + step] = torch.where(live, dots * wr, INVALID)
     return out
 

@@ -417,6 +417,87 @@ def test_ivf_probe_kernel_matches_plain(cuda, fmt):
     assert (got[args[1] == 2] == -1e9).all()        # list 2 has nblocks 0
 
 
+def _int4_case(kind, d=128, seed=0):
+    """An int4 probe case whose cells group in a given way: "split" (one list
+    probed by 21 cells: more than a group holds), "one_list" (every cell on
+    one list), "bad_id" (ids -1, L and 2^30 among valid ones), "nblocks" (0,
+    a negative count and counts past the capacity)."""
+    q, probe, data, w, nb = _probe_case("int4", d=d, b=24, p=6, seed=seed)
+    if kind == "split":
+        probe.view(-1)[:21] = 3
+    elif kind == "one_list":
+        probe[:] = 5
+    elif kind == "bad_id":
+        probe[0, 2], probe[3, 4], probe[7, 0] = -1, 8, 1 << 30
+    elif kind == "nblocks":
+        nb = torch.tensor([0, -3, 0, 5, 1, 3, 2, 100], dtype=torch.int32)
+    return q, probe, data, w, nb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 128, 384])
+@pytest.mark.parametrize("kind", ["split", "one_list", "bad_id", "nblocks"])
+def test_ivf_probe_int4_grouping_cases(cuda, kind, d):
+    """B5 (grouping pass + grouped kernel) equals its plain version on
+    integer data however the cells group; a cell with an id outside [0, L)
+    is -1e9 everywhere."""
+    q, probe, data, w, nb = (t.to(cuda) for t in _int4_case(kind, d=d))
+    before = dict(tivf.LAUNCHES)
+    got = tivf.ivf_probe_scores_int4(q, probe, data, w, nb)
+    torch.cuda.synchronize()
+    assert tivf.LAUNCHES["ivf_probe_int4"] == before["ivf_probe_int4"] + 1
+    assert tivf.LAUNCHES["ivf_group"] == before["ivf_group"] + 1
+    assert torch.equal(got, tivf.ivf_probe_scores_int4_ref(q, probe, data, w, nb))
+    bad = (probe < 0) | (probe >= w.shape[0])
+    assert (got[bad] == -1e9).all()
+    if kind == "nblocks":
+        assert (got[probe == 0] == -1e9).all() and (got[probe == 1] == -1e9).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,n_lists", [(1, 1, 1), (24, 6, 8), (128, 16, 4096),
+                                         (512, 64, 1000), (3, 5, 70_000)])
+def test_group_cells_kernel_matches_plain(cuda, b, p, n_lists):
+    """The int4 probe's grouping pass against group_cells_ref: the same bin
+    starts, and the same cells in each bin (in any order there)."""
+    g = np.random.default_rng(b + p)
+    probe = torch.from_numpy(g.integers(-2, n_lists + 2, (b, p)).astype(np.int32))
+    probe.view(-1)[: b * p // 3] = n_lists // 2          # a hot list
+    before = tivf.LAUNCHES["ivf_group"]
+    order, start = tivf.group_cells(probe.to(cuda), n_lists)
+    torch.cuda.synchronize()
+    assert tivf.LAUNCHES["ivf_group"] == before + 1
+    want_order, want_start = tivf.group_cells_ref(probe, n_lists)
+    assert torch.equal(start.cpu(), want_start)
+    got = order.cpu()
+    for k in torch.nonzero(want_start[1:] > want_start[:-1]).reshape(-1).tolist():
+        lo, hi = want_start[k].item(), want_start[k + 1].item()
+        assert torch.equal(torch.sort(got[lo:hi]).values, torch.sort(want_order[lo:hi]).values)
+
+
+@pytest.mark.cuda
+def test_int4_probe_raises_when_the_kernel_cannot_load(cuda, monkeypatch):
+    """A CUDA tensor launches B5 or raises; it never falls back to the plain
+    version, through the op, the grouping pass or the index."""
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(tivf, "build_kernels", no_library)
+    q, probe, data, w, nb = (t.to(cuda) for t in _probe_case("int4"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tivf.ivf_probe_scores_int4(q, probe, data, w, nb)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tivf.group_cells(probe, w.shape[0])
+    g = np.random.default_rng(5)
+    v = g.standard_normal((5000, 128)).astype(np.float32)
+    idx = Int4IvfDeviceIndex(128, nlist=16, nprobe=4, initial_capacity=2048, device=cuda)
+    idx.add_batch([f"d{i}" for i in range(len(v))], v)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        idx.search_batch(v[:2], 3)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tivf.ivf_probe_scores_int4(q[:, :48], probe, data[:, :, :24], w, nb)
+
+
 @pytest.mark.cuda
 def test_ivf_probe_kernel_refuses_what_it_cannot_load(cuda):
     """A CUDA tensor the kernel cannot take raises; it never falls back."""
@@ -518,11 +599,14 @@ def _words(g, rows, w, pattern):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,c,w", [(1, 1, 1), (129, 1000, 3), (7, 262_143, 24),
-                                   (33, 4097, 24), (2, 513, 5)])
+                                   (33, 4097, 24), (2, 513, 5), (128, 262_144, 24),
+                                   (256, 262_144, 24), (130, 1030, 48), (3, 777, 70)])
 @pytest.mark.parametrize("pattern", ["random", "zeros", "ones", "alternating"])
 def test_hamming_kernel_equals_plain(cuda, b, c, w, pattern):
     """B6 against its plain version, integer for integer: C not a multiple
-    of 512 (or of the kernel's 128-row tile), W = 1, 3, 5, 24, B = 1, 129."""
+    of 512 (or of the kernel's 128-row tile, or of 4, which the 16-byte
+    stores need), W = 1, 3, 5, 24, 48 and 70 (two staged query chunks),
+    B = 1 .. 256; the main shape at B = 128 and 256."""
     g = np.random.default_rng(b * 7 + c)
     q = _words(g, b, w, "random" if pattern == "random" else "alternating").to(cuda)
     codes = _words(g, c, w, pattern).to(cuda)

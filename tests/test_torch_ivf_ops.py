@@ -12,6 +12,8 @@ lists; top-k results as id sets with the near-tie guard
 (tests/torch_parity.py). Quantized codes and scales compare bit for bit.
 """
 
+from importlib import import_module
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,11 +29,13 @@ from grape_vector_db_tpu.ops.kmeans import assign_clusters as j_assign
 from grape_vector_db_tpu.ops.kmeans import kmeans as j_kmeans
 from grape_vector_db_tpu_torch.ops import ivf as tivf
 from grape_vector_db_tpu_torch.ops import ivf_scan as tscan
-from grape_vector_db_tpu_torch.ops import kmeans as tkm
 from grape_vector_db_tpu_torch.ops.int4 import quantize_int4 as tq4
 from grape_vector_db_tpu_torch.ops.int4 import unpack_int4 as tunpack4
 from grape_vector_db_tpu_torch.ops.int8 import quantize_int8 as tq8
 from torch_parity import assert_close, assert_topk_match, to_np
+
+# the module, not the function the ops package exports under the same name
+tkm = import_module("grape_vector_db_tpu_torch.ops.kmeans")
 
 torch.set_num_threads(2)
 
@@ -280,3 +284,38 @@ def test_probe_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tivf._launch("bf16", torch.zeros(2, D), torch.zeros(2, 3, dtype=torch.int32),
                      torch.zeros(L, C, D, dtype=torch.bfloat16), torch.ones(L, C), None)
+
+
+@pytest.mark.parametrize("b,p,n_lists", [(1, 1, 1), (24, 6, 8), (128, 16, 4096), (7, 3, 2)])
+def test_group_cells_ref_matches_a_numpy_ordering(rng, b, p, n_lists):
+    """The plain version of the int4 probe's grouping pass: the cells b * P +
+    p stably ordered by list (ids outside [0, L) last, in bin L), and the
+    bins' first positions."""
+    probe = rng.integers(-2, n_lists + 2, (b, p)).astype(np.int32)
+    probe.reshape(-1)[: b * p // 3] = n_lists // 2          # a hot list
+    order, start = tivf.group_cells_ref(_t(probe), n_lists)
+    ids = probe.reshape(-1)
+    bins = np.where((ids >= 0) & (ids < n_lists), ids, n_lists)
+    want = np.argsort(bins, kind="stable")
+    assert order.dtype == torch.int32 and start.dtype == torch.int32
+    np.testing.assert_array_equal(to_np(order), want)
+    counts = np.bincount(bins, minlength=n_lists + 1)
+    np.testing.assert_array_equal(to_np(start), np.concatenate([[0], np.cumsum(counts)]))
+    # the CPU wrapper takes the plain version
+    assert all(torch.equal(x, y) for x, y in zip(tivf.group_cells(_t(probe), n_lists),
+                                                (order, start)))
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
+def test_probe_ref_scores_unknown_ids_invalid(rng, fmt):
+    """A probe id outside [0, L) scores -1e9 on its whole cell; the other
+    cells score as they do without it."""
+    jdata, tdata, w, nb = _lists(rng, fmt)
+    q = _t(rng.standard_normal((B, D)).astype(np.float32))
+    bad = PROBE.copy()
+    bad[0, 1], bad[2, 0], bad[3, 2] = -1, L, 1 << 30
+    got = to_np(_PORT_REF[fmt](q, _t(bad), tdata, _t(w), _t(nb)))
+    want = to_np(_PORT_REF[fmt](q, _t(PROBE), tdata, _t(w), _t(nb)))
+    unknown = (bad < 0) | (bad >= L)
+    assert (got[unknown] == -1e9).all()
+    np.testing.assert_array_equal(got[~unknown], want[~unknown])
