@@ -26,9 +26,10 @@ the port's paths through ``VectorDatabase`` on the card:
 - the IVF family at the repository's 1M IVF configuration (bench.py:483-506:
   1,048,576 x 768 clustered rows, 16,384 Gaussian centres + 0.25 noise,
   nlist 4096, nprobe 16): ``ivf`` runs B3, ``ivf_int8`` B4 and ``ivf_int4``
-  B5 (``csrc/ivf_probe.cu``; B5 is a grouping pass that sorts the probe
-  cells by list, then a kernel that streams each list once for up to 8 of
-  its cells on the bf16 tensor cores) through ingest, search before and after
+  B5 (``csrc/ivf_probe.cu``; B4 and B5 are a grouping pass that sorts the
+  probe cells by list, then a kernel that streams each list once for up to 8
+  of its cells on the bf16 tensor cores: for B4 a persistent grid fed by TMA
+  copies on mbarriers, for B5 one block a group) through ingest, search before and after
   ``optimize()``, filtered search on both planner routes, the streaming
   exhaustive tier, deletes and search again, each against numpy oracles;
 - the binary kind at 1,048,576 x 768 on the flat path's Gaussian corpus:
@@ -56,17 +57,19 @@ the port's paths through ``VectorDatabase`` on the card:
   other (the pairs route is the parent tree's kernel).
 
 With ``--parent DIR`` (the parent commit's tree, unpacked), the hamming
-phase and the int4 probe's main shapes also build the parent's
+phase and the int8 and int4 probes' main shapes also build the parent's
 ``csrc/hamming.cu`` and ``csrc/ivf_probe.cu`` and time the parent's kernels
-in turns with this tree's (parent, change, change, parent); without it those
-comparisons are skipped and logged as such.
+(B6; the per-cell int8 kernel, format 2 of the parent's ``gvdb_ivf_probe``;
+the grouped int4 one) in turns with this tree's (parent, change, change,
+parent); without it those comparisons are skipped and logged as such.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Every phase raises on failure. Earlier lines report each phase;
 the line before the last is a JSON object with one entry per kernel (B4/B5's
 entries carry their launches on the IVF path; the projected path's own run
-at D = 384 sits under their "d384" key; B5's grouping pass has its own
-entry, "ivf_group"; B11 has one entry for the graph
+at D = 384 sits under their "d384" key; B4/B5's grouping pass has its own
+entry, "ivf_group", whose launches are both paths' with the split under
+"launches_by_path"; B11 has one entry for the graph
 search, with its entry step's shape under "entry", one for the build,
 "gather_dots@build", and one for the build's grouping pass, "gather_group");
 the last line is the JSON result. Without a CUDA
@@ -151,7 +154,8 @@ KERNELS = {
                        "grape_vector_db_tpu/ops/ivf_pallas.py:331"),
     "ivf_probe_int4": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
                        "grape_vector_db_tpu/ops/ivf_pallas.py:477"),
-    # B5's grouping pass (the int4 probe's cells sorted by list) before its kernel
+    # B4/B5's grouping pass (the int8 and int4 probes' cells sorted by list)
+    # before their kernels
     "ivf_group": ("grape_vector_db_tpu_torch/csrc/ivf_probe.cu",
                   "grape_vector_db_tpu/ops/ivf_pallas.py:477"),
     "hamming": ("grape_vector_db_tpu_torch/csrc/hamming.cu",
@@ -166,7 +170,7 @@ KERNELS = {
     "gather_group": ("grape_vector_db_tpu_torch/csrc/gather.cu",
                      "grape_vector_db_tpu/ops/gather_pallas.py:61"),
 }
-# the parent commit's tree (--parent): its B5 / B6 kernels are timed in turns
+# the parent commit's tree (--parent): its B4 / B5 / B6 kernels are timed in turns
 PARENT = None
 # IVF kind -> the probe kernel its main search runs
 IVF_KERNEL = {"ivf": "ivf_probe", "ivf_int8": "ivf_probe_int8", "ivf_int4": "ivf_probe_int4"}
@@ -227,7 +231,8 @@ def ptxas_summary(build_log: str):
         mx = re.search(r"Compiling entry function '.*segmax_max_kernelILi(\d)ELi(\d)EE", line)
         m = re.search(r"Compiling entry function '.*segmax_kernelILi(\d)ELi(\d)EE", line)
         p = re.search(r"Compiling entry function '.*probe_kernelILi(\d)E+v", line)
-        i4 = re.search(r"Compiling entry function '.*int4_(probe|group)_kernel", line)
+        i4 = re.search(r"Compiling entry function '.*(int8_probe|int4_probe|grp\d+group)_kernel",
+                       line)
         f = re.search(r"Compiling entry function '.*fill_kernel", line)
         h = re.search(r"Compiling entry function '.*hamming_mma_kernel", line)
         g = re.search(r"Compiling entry function '.*gather_dots_kernelILi(\d)ELb(\d)E", line)
@@ -243,8 +248,9 @@ def ptxas_summary(build_log: str):
         elif p:
             name = f"ivf_probe<{fmts[p[1]]}>"
         elif i4:
-            name = ("ivf_probe_int4 (grouped, bf16 mma)" if i4[1] == "probe"
-                    else "ivf_group (int4 grouping pass)")
+            name = {"int8_probe": "ivf_probe_int8 (persistent, TMA ring, bf16 mma)",
+                    "int4_probe": "ivf_probe_int4 (grouped, bf16 mma)"}.get(
+                        i4[1], "ivf_group (int8 / int4 grouping pass)")
         elif h:
             name = "hamming (b1 mma)"
         elif g:
@@ -282,11 +288,18 @@ def read_counts() -> dict:
 
 # -- set-up -----------------------------------------------------------------
 
+# the parent's C entries of the grouped probes, and of their scratch size,
+# under each name a tree has given them
+PARENT_SCRATCH_WORDS = ("gvdb_ivf_scratch_words", "gvdb_ivf_int4_scratch_words")
+
+
 def parent_lib(name: str) -> ctypes.CDLL:
     """The parent tree's ``csrc/<name>.cu`` (``--parent``), built with this
-    tree's nvcc flags into this tree's ``_build/``, with its C entry bound:
-    ``gvdb_hamming`` or ``gvdb_ivf_probe`` (whose format 3 is the parent's
-    int4 probe). Both of the parent's sources export
+    tree's nvcc flags into this tree's ``_build/``, with its C entries bound:
+    ``gvdb_hamming``, or ``gvdb_ivf_probe`` (whose format 2, where the parent
+    has it, is the per-cell int8 probe) and, where the parent has them, the
+    grouped ``gvdb_ivf_probe_int8`` / ``gvdb_ivf_probe_int4`` and their
+    scratch size. Both of the parent's sources export
     ``gvdb_cuda_error_string``, as ``_build.load`` expects."""
     from grape_vector_db_tpu_torch.ops import _build
 
@@ -297,6 +310,17 @@ def parent_lib(name: str) -> ctypes.CDLL:
                        + [ctypes.c_void_p] if name == "hamming" else
                        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
+        if name == "hamming":
+            return
+        for entry in ("gvdb_ivf_probe_int8", "gvdb_ivf_probe_int4"):
+            if hasattr(lib, entry):
+                getattr(lib, entry).restype = ctypes.c_int
+                getattr(lib, entry).argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                                                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        for entry in PARENT_SCRATCH_WORDS:
+            if hasattr(lib, entry):
+                getattr(lib, entry).restype = ctypes.c_long
+                getattr(lib, entry).argtypes = [ctypes.c_int] * 4
 
     return _build.load(f"parent_{name}", bind,
                        os.path.join(PARENT, "grape_vector_db_tpu_torch", "csrc", f"{name}.cu"))
@@ -326,7 +350,7 @@ def setup():
         for fut in [pool.submit(b) for b in builds]:
             fut.result()
     log(f"[setup] kernels built in {time.perf_counter() - t0:.2f} s (in parallel)"
-        + (f"; the parent's B5 and B6 from {PARENT}" if PARENT else ""))
+        + (f"; the parent's B4, B5 and B6 from {PARENT}" if PARENT else ""))
     for name in ("segmax", "segmax_max", "ivf_probe", "hamming", "gather"):
         info = _build.BUILD_INFO[name]
         log(f"[setup] {name}: {info['library']}, {info['seconds']:.2f} s")
@@ -334,6 +358,13 @@ def setup():
             log(f"[setup] ptxas {entry}")
     log(f"[setup] segmax_max: {segmax.build_max_kernel().gvdb_segmax_max_smem_bytes()} bytes "
         "of dynamic shared memory a block, one block an SM")
+    for d in (DIM, PROJ_DIM):
+        plan = (ctypes.c_int * 4)()
+        require(ivf.build_kernels().gvdb_ivf_int8_plan(0, d, plan) == 0,
+                "gvdb_ivf_int8_plan failed")
+        log(f"[setup] ivf_probe_int8 at D={d}: {plan[0]} ring stages of 16 KB, {plan[1]} bytes "
+            f"of dynamic shared memory a block, {plan[2]} blocks an SM, {plan[3]} threads a "
+            "block")
     a = torch.ones(4, 8, device="cuda", dtype=torch.bfloat16)
     require(torch.mm(a, a.T, out_dtype=torch.float32).dtype == torch.float32,
             "torch.mm(bf16, bf16, out_dtype=float32) did not return float32")
@@ -823,6 +854,52 @@ def probe_adversarial():
                 f"ivf_probe_int4 {kind} D={d}: grouped scores differ from the plain version")
         log(f"[kernels] ivf_probe_int4 grouping case '{kind}' (D={d}, B={b}, P={p}): every "
             f"score equal")
+    # B4's groups, with codes over all of [-128, 127]: the same four ways to
+    # group (and nblocks 0, negative and past the capacity) at D = 16, 128
+    # and 384
+    for d, kind in itertools.product((16, 128, PROJ_DIM), ("split", "one list", "bad ids",
+                                                          "nblocks")):
+        rng = np.random.default_rng(SEED + 13 + d)
+        n_lists, cap, b, p = 8, 128, 24, 6
+        data = torch.from_numpy(rng.integers(-128, 128, (n_lists, cap, d)).astype(np.int8)).to(dev)
+        q = torch.from_numpy(rng.integers(-3, 4, (b, d)).astype(np.float32)).to(dev)
+        w = torch.from_numpy(rng.choice([0.0, 0.5, 1.0, 2.0], (n_lists, cap))
+                             .astype(np.float32)).to(dev)
+        nb = torch.tensor([2, 1, 0, 2, 1, 3, 2, -1], dtype=torch.int32, device=dev)
+        probe = torch.from_numpy(rng.integers(0, n_lists, (b, p)).astype(np.int32)).to(dev)
+        if kind == "split":
+            probe.view(-1)[:21] = 3
+        elif kind == "one list":
+            probe[:] = 5
+        elif kind == "bad ids":
+            probe[0, 2], probe[3, 4], probe[7, 0] = -1, n_lists, 1 << 30
+        else:
+            nb = torch.tensor([0, -3, 0, 5, 1, 3, 2, 100], dtype=torch.int32, device=dev)
+        got = tivf.ivf_probe_scores_int8(q, probe, data, w, nb)
+        torch.cuda.synchronize()
+        bad = (probe < 0) | (probe >= n_lists) | (nb.clamp(min=0)[probe.clamp(0, n_lists - 1)
+                                                                  .long()] == 0)
+        want = tivf.ivf_probe_scores_int8_ref(q, probe, data, w, nb)
+        require(torch.equal(got, want) and bool((got[bad] == -1e9).all()),
+                f"ivf_probe_int8 {kind} D={d}: grouped scores differ from the plain version")
+        log(f"[kernels] ivf_probe_int8 grouping case '{kind}' (D={d}, B={b}, P={p}): every "
+            f"score equal, bad cells -1e9 throughout")
+    # every byte value at every position of a 16-byte chunk against one-hot
+    # queries: each score is the byte itself
+    d, cap = 128, 256
+    codes = ((torch.arange(cap)[:, None] + torch.arange(d)[None, :]) % 256 - 128).to(torch.int8)
+    codes = codes.reshape(1, cap, d).to(dev)
+    q = torch.eye(d, device=dev)
+    probe = torch.zeros((d, 1), dtype=torch.int32, device=dev)
+    w = torch.ones((1, cap), device=dev)
+    nb = torch.tensor([cap // 64], dtype=torch.int32, device=dev)
+    got = tivf.ivf_probe_scores_int8(q, probe, codes, w, nb)
+    torch.cuda.synchronize()
+    require(torch.equal(got, tivf.ivf_probe_scores_int8_ref(q, probe, codes, w, nb))
+            and torch.equal(got[:, 0, :], codes[0].T.float()),
+            "ivf_probe_int8: the byte -> bf16 route is not exact on every byte")
+    log(f"[kernels] ivf_probe_int8 on all 256 byte values x {d} positions (one-hot queries): "
+        "equal to the plain version bit for bit")
 
 
 # -- B6 against its plain version -------------------------------------------------
@@ -1244,16 +1321,29 @@ def recall_full(hits, corpus, alive, k=10):
     return found / (k * len(hits))
 
 
-def int4_details(qp, probe, data, w, nb, label):
-    """B5 beyond its whole call: the grouping pass held against its plain
-    version (the same bin starts, the same cells in each bin) and timed
+# the grouped probes: wrapper, the kernel's name in the profiler's events,
+# the format code of the parent's gvdb_ivf_probe that --parent times where
+# the parent has no grouped entry of the probe's name
+GROUPED = {"ivf_probe_int8": ("ivf_probe_scores_int8", "int8_probe_kernel", 2),
+           "ivf_probe_int4": ("ivf_probe_scores_int4", "int4_probe_kernel", 3)}
+
+
+def grouped_details(name, qp, probe, data, w, nb, label):
+    """B4 or B5 beyond its whole call: the grouping pass held against its
+    plain version (the same bin starts, the same cells in each bin) and timed
     alone (its bound: read the ids, write the starts and the order; the
     library call: one stable torch.sort of the ids); the call's device time
-    by kernel (torch.profiler); with --parent, the parent's per-cell kernel
-    in turns with this tree's whole call. Returns (extra stats of the
-    probe's entry, the grouping pass's entry)."""
+    by kernel (torch.profiler); with --parent, the parent's kernel (B4: the
+    per-cell kernel; B5: its grouped one) in turns with this tree's whole
+    call (the parent's grouped entry ``gvdb_<name>`` where it has one, else
+    format ``parent_fmt`` of its ``gvdb_ivf_probe``). Both sides of the
+    turns call their C entry directly on buffers allocated once, so the
+    wrapper's host work (allocation, dtype checks) is on neither. Returns
+    (extra stats of the probe's entry, the grouping pass's entry)."""
     from grape_vector_db_tpu_torch.ops import ivf as tivf
 
+    wrapper, kernel, parent_fmt = GROUPED[name]
+    call_once = getattr(tivf, wrapper)
     n_lists = w.shape[0]
     order, start = tivf.group_cells(probe, n_lists)
     o_ref, s_ref = tivf.group_cells_ref(probe, n_lists)
@@ -1273,12 +1363,11 @@ def int4_details(qp, probe, data, w, nb, label):
              **bound(probe.numel() * 8 + (n_lists + 2) * 4, 0.0), "library_ms": g_lib}
     splits = []
     for _ in range(3):
-        call = device_ms(lambda: tivf.ivf_probe_scores_int4(qp, probe, data, w, nb))
+        call = device_ms(lambda: call_once(qp, probe, data, w, nb))
         splits.append({"group_kernel": sum(x for k_, x in call.items() if "group_kernel" in k_),
-                       "probe_kernel": sum(x for k_, x in call.items()
-                                           if "int4_probe_kernel" in k_)})
+                       "probe_kernel": sum(x for k_, x in call.items() if kernel in k_)})
     split = max(splits, key=lambda x: sum(x.values()))
-    log(f"[times] ivf_probe_int4 {label}: device time of the call by kernel: grouping pass "
+    log(f"[times] {name} {label}: device time of the call by kernel: grouping pass "
         f"{split['group_kernel']:.4f} ms, kernel {split['probe_kernel']:.4f} ms; the grouping "
         f"pass alone {g_ms:.4f} ms (plain {g_plain:.4f} ms, torch.sort of the ids {g_lib:.4f} "
         f"ms; bound {group['bound_ms']:.5f} ms); {len(torch.unique(probe))} lists serve "
@@ -1291,27 +1380,97 @@ def int4_details(qp, probe, data, w, nb, label):
         lib = parent_lib("ivf_probe")
         qc, pc, nbc = qp.contiguous(), probe.contiguous(), nb.contiguous()
         stream = torch.cuda.current_stream().cuda_stream
+        grouped = getattr(lib, f"gvdb_{name}", None)
+        if grouped is not None:
+            words = next(getattr(lib, e) for e in PARENT_SCRATCH_WORDS if hasattr(lib, e))
+            scratch = torch.empty(words(b * p_, n_lists, b, d), dtype=torch.int32,
+                                  device=qp.device)
+            which = f"grouped kernel (gvdb_{name})"
 
-        def parent():
-            lib.gvdb_ivf_probe(3, 0, qc.data_ptr(), pc.data_ptr(), data.data_ptr(),
-                               w.data_ptr(), nbc.data_ptr(), out.data_ptr(), b, p_,
-                               n_lists, c, d, stream)
+            def parent():
+                rc = grouped(0, qc.data_ptr(), pc.data_ptr(), data.data_ptr(), w.data_ptr(),
+                             nbc.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, p_, n_lists,
+                             c, d, stream)
+                require(rc == 0, f"the parent's gvdb_{name} failed: {rc}")
+        else:
+            which = f"per-cell kernel (gvdb_ivf_probe format {parent_fmt})"
 
+            def parent():
+                rc = lib.gvdb_ivf_probe(parent_fmt, 0, qc.data_ptr(), pc.data_ptr(),
+                                        data.data_ptr(), w.data_ptr(), nbc.data_ptr(),
+                                        out.data_ptr(), b, p_, n_lists, c, d, stream)
+                require(rc == 0, f"the parent's gvdb_ivf_probe format {parent_fmt} failed: {rc}")
+
+        mine = getattr(tivf.build_kernels(), f"gvdb_{name}")
+        out_c = torch.empty_like(out)
+        scratch_c = torch.empty(tivf.build_kernels().gvdb_ivf_scratch_words(b * p_, n_lists, b, d),
+                                dtype=torch.int32, device=qp.device)
+
+        def change():
+            rc = mine(0, qc.data_ptr(), pc.data_ptr(), data.data_ptr(), w.data_ptr(),
+                      nbc.data_ptr(), out_c.data_ptr(), scratch_c.data_ptr(), b, p_, n_lists, c,
+                      d, stream)
+            require(rc == 0, f"gvdb_{name} failed: {rc}")
+
+        out.fill_(float("nan"))
         parent()
+        change()
         torch.cuda.synchronize()
-        new = tivf.ivf_probe_scores_int4(qp, probe, data, w, nb)
+        new = call_once(qp, probe, data, w, nb)
+        require(torch.equal(out_c, new), f"{name} {label}: the C entry and the wrapper differ")
         inv = new == -1e9
-        require(torch.equal(out == -1e9, inv), f"ivf_probe_int4 {label}: the parent's -1e9 differ")
+        require(torch.equal(out == -1e9, inv), f"{name} {label}: the parent's -1e9 differ")
         diff = (out - new)[~inv].abs().max().item()
-        (n1, n2), (o1, o2) = in_turns(lambda: tivf.ivf_probe_scores_int4(qp, probe, data, w, nb),
-                                      parent, 20, 20)
+        require(diff <= TOL, f"{name} {label}: the parent's scores differ by {diff}")
+        (n1, n2), (o1, o2) = in_turns(change, parent, 20, 20)
         extra["parent_ms"] = [o1, n1, n2, o2]
-        log(f"[times] ivf_probe_int4 {label} against the parent's per-cell kernel, in turns "
-            f"(parent, change, change, parent): {o1:.4f} / {n1:.4f} / {n2:.4f} / {o2:.4f} ms "
-            f"(the two agree within {diff:.3g})")
+        log(f"[times] {name} {label} against the parent's {which}, in turns (parent, change, "
+            f"change, parent): {o1:.4f} / {n1:.4f} / {n2:.4f} / {o2:.4f} ms (the two agree "
+            f"within {diff:.3g})")
     else:
-        log(f"[times] ivf_probe_int4 {label}: the parent's kernel not timed (no --parent)")
+        log(f"[times] {name} {label}: the parent's kernel not timed (no --parent)")
     return extra, group
+
+
+def int8_library_ms(qp, probe, codes, w, nb):
+    """The nearest library composition of B4, timed on the same inputs: the
+    probed lists' codes gathered, .to(bf16), torch.bmm with q' (f32 out),
+    times the weights, where (5 calls, plus the masks' index arithmetic), in
+    query chunks of at most 2^30 gathered codes."""
+    from grape_vector_db_tpu_torch.ops import ivf as tivf
+
+    n_lists, cap = w.shape
+    b, d = qp.shape
+    p_ = probe.shape[1]
+    pr = probe.long()
+    known = (pr >= 0) & (pr < n_lists)
+    pr = torch.where(known, pr, 0)
+    qb = qp.to(torch.bfloat16)
+    lim = torch.clamp(torch.clamp(nb.long(), min=0) * 64, max=cap)
+    pos = torch.arange(cap, device=w.device)
+    out = torch.empty((b, p_, cap), dtype=torch.float32, device=w.device)
+    step = max(1, (1 << 30) // (p_ * cap * d))
+
+    def call():
+        for b0 in range(0, b, step):
+            rows = codes[pr[b0:b0 + step]].to(torch.bfloat16)        # [bs, P, C, D]
+            bs = rows.shape[0]
+            dots = torch.bmm(rows.reshape(bs, p_ * cap, d), qb[b0:b0 + step, :, None],
+                             out_dtype=torch.float32).reshape(bs, p_, cap)
+            wr = w[pr[b0:b0 + step]]
+            live = ((wr != 0) & (pos < lim[pr[b0:b0 + step]][:, :, None])
+                    & known[b0:b0 + step, :, None])
+            out[b0:b0 + step] = torch.where(live, dots * wr, -1e9)
+        return out
+
+    got = call().clone()
+    torch.cuda.synchronize()
+    want = tivf.ivf_probe_scores_int8_ref(qp, probe, codes, w, nb)
+    inv = want == -1e9
+    require(torch.equal(got == -1e9, inv), "ivf_probe_int8: the library composition's -1e9 differ")
+    require((got - want)[~inv].abs().max().item() <= TOL,
+            "ivf_probe_int8: the library composition disagrees with the plain version")
+    return cuda_ms(call, 5)
 
 
 def probe_main_shapes(kind, idx, corpus):
@@ -1362,8 +1521,14 @@ def probe_main_shapes(kind, idx, corpus):
         f"({len(torch.unique(probe))} lists); bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     stats = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b,
              "library_ms": None}
-    if kind == "ivf_int4":
-        extra, stats["group"] = int4_details(qp, probe, data, w, nb, f"D={DIM}")
+    if kind == "ivf_int8":
+        stats["library_ms"] = int8_library_ms(qp, probe, data, w, nb)
+        stats["library"] = ("composition: codes gather, .to(bf16), torch.bmm out_dtype=f32, "
+                            "multiply, where")
+        log(f"[times] {name}: library composition ({stats['library']}) "
+            f"{stats['library_ms']:.4f} ms")
+    if name in GROUPED:
+        extra, stats["group"] = grouped_details(name, qp, probe, data, w, nb, f"D={DIM}")
         stats.update(extra)
     return stats
 
@@ -1464,9 +1629,9 @@ def ivf_path(kind: str, corpus: Clustered, nlist: int):
         f"filtered at 90% and 10%, the streaming tier, deleted 1000, batch again; "
         f"kernel launches {launches}")
     require(launches[kname] > 0, f"the {kind} path never launched {kname}")
-    if kind == "ivf_int4":
+    if kname in GROUPED:
         require(launches["ivf_group"] == launches[kname],
-                "the ivf_int4 path's probes and grouping passes differ in number")
+                f"the {kind} path's probes and grouping passes differ in number")
     require(compact_used, f"{kind}: the 10% filter did not take the compact tier")
 
     alive = np.ones(rows, bool)
@@ -1912,6 +2077,8 @@ def small_kind_path(label, kind, corpus, updates, kname):
     if kind.endswith("_proj"):
         extra = f", retained energy {idx.proj_energy:.4f}"
         require(launches[kname] > 0, f"{label}: the path never launched {kname}")
+        require(launches["ivf_group"] == launches[kname],
+                f"{label}: the path's probes and grouping passes differ in number")
     log(f"[{label}] {corpus.rows} rows ({corpus.name} corpus; cut from 1M for the time "
         f"limit): ingest {corpus.rows / ingest_s:.0f} docs/s, optimize() {optimize_s:.2f} s"
         f"{extra}; every returned row passes the oracle; recall@10 against the flat oracle "
@@ -1961,9 +2128,12 @@ def proj_probe_shapes(name, idx, corpus):
         f"{p2:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     stats = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b,
              "library_ms": None}
-    if name == "ivf_probe_int4":
-        extra, stats["group"] = int4_details(qp, probe, data, w, nb, f"D={PROJ_DIM}")
-        stats.update(extra)
+    if name == "ivf_probe_int8":
+        stats["library_ms"] = int8_library_ms(qp, probe, data, w, nb)
+        log(f"[times] {name} D={PROJ_DIM}: library composition (codes gather, .to(bf16), "
+            f"torch.bmm out_dtype=f32, multiply, where) {stats['library_ms']:.4f} ms")
+    extra, stats["group"] = grouped_details(name, qp, probe, data, w, nb, f"D={PROJ_DIM}")
+    stats.update(extra)
     return stats
 
 
@@ -2429,15 +2599,19 @@ def main():
     if QUANT_ROWS != IVF_ROWS:
         corpus = Clustered(QUANT_ROWS)
     log(f"[ivf] the quantized kinds run at {QUANT_ROWS} rows, nlist {QUANT_NLIST}")
+    group_launches = {}
     for kind in ("ivf_int8", "ivf_int4"):
         name = IVF_KERNEL[kind]
         counts, kernel_stats[name] = ivf_path(kind, corpus, QUANT_NLIST)
         launches[name] = counts[name]
-        if kind == "ivf_int4":   # B5's grouping pass: one a probe
-            launches["ivf_group"] = counts["ivf_group"]
-            kernel_stats["ivf_group"] = kernel_stats[name].pop("group")
+        group_launches[kind] = counts["ivf_group"]   # B4/B5's grouping pass: one a probe
+        group = kernel_stats[name].pop("group")
+        if kind == "ivf_int4":
+            kernel_stats["ivf_group"] = group
         torch.cuda.empty_cache()
         log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
+    launches["ivf_group"] = sum(group_launches.values())
+    kernel_stats["ivf_group"]["launches_by_path"] = group_launches
     del corpus
     launches["hamming"] = binary_path()
     torch.cuda.empty_cache()
@@ -2446,12 +2620,15 @@ def main():
     for label, kind, cname, updates, kname in SMALL_KINDS:
         counts, stats = small_kind_path(label, kind, corpora[cname], updates, kname)
         if kname is not None:   # the projected path's own run of B4/B5, at D = R
-            group = stats.pop("group", None)
+            group = stats.pop("group")
             kernel_stats[kname][f"d{PROJ_DIM}"] = {"path": kind, "launches": counts[kname],
                                                    **stats}
-            if group is not None:
-                kernel_stats["ivf_group"][f"d{PROJ_DIM}"] = {
-                    "path": kind, "launches": counts["ivf_group"], **group}
+            d_group = kernel_stats["ivf_group"].setdefault(f"d{PROJ_DIM}", {
+                "launches": 0, "launches_by_path": {}})
+            d_group["launches"] += counts["ivf_group"]
+            d_group["launches_by_path"][kind] = counts["ivf_group"]
+            if kname == "ivf_probe_int4":
+                d_group.update({"path": kind, **group})
         torch.cuda.empty_cache()
         log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     clustered = corpora["clustered"]

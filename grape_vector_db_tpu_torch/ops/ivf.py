@@ -11,19 +11,22 @@ The probe has two implementations of one contract for each storage format:
 
 - the hand-written CUDA kernels in ``csrc/ivf_probe.cu``, built with
   ``nvcc`` at first use (``ops/_build.py``) and called through a plain C
-  interface: one template for bf16 and f32 rows (``_probe_kernel``) and
-  int8 codes (``_probe_kernel_int8``), one block a cell; for packed int4
+  interface: one template for bf16 and f32 rows (``_probe_kernel``), one
+  block a cell; for int8 codes (``_probe_kernel_int8``) and packed int4
   (``_probe_kernel_int4``) a grouping pass that sorts the cells by list
   (``group_cells``), then a kernel that streams each list once for up to 8
-  of its cells and takes the product on the tensor cores;
+  of its cells and takes the product on the tensor cores (int8: a
+  persistent grid fed by TMA copies on mbarriers; int4: one block a
+  group);
 - the plain PyTorch versions ``ivf_probe_scores_ref``,
   ``ivf_probe_scores_int8_ref``, ``ivf_probe_scores_int4_ref`` and
   ``group_cells_ref``.
 
 ``ivf_probe_scores*`` and ``group_cells`` take the plain version only for
 tensors on the CPU; for a CUDA tensor they launch the kernel or raise. Each
-launch adds one to ``LAUNCHES`` (an int4 probe adds one to
-``"ivf_probe_int4"`` and one to ``"ivf_group"``, its grouping pass). The
+launch adds one to ``LAUNCHES`` (an int8 or int4 probe adds one to
+``"ivf_probe_int8"`` or ``"ivf_probe_int4"`` and one to ``"ivf_group"``, its
+grouping pass). The
 reference's per-call VMEM chunking of the probe axis and the 8-sublane
 broadcast of the weight planes were TPU artefacts and are gone: planes are
 ``[L, C]``.
@@ -80,13 +83,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gvdb_ivf_group.restype = ctypes.c_int
     lib.gvdb_ivf_group.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2
                                    + [ctypes.c_void_p] * 2)
-    lib.gvdb_ivf_int4_scratch_words.restype = ctypes.c_long
-    lib.gvdb_ivf_int4_scratch_words.argtypes = [ctypes.c_int] * 4
-    lib.gvdb_ivf_int4_order_word.restype = ctypes.c_long
-    lib.gvdb_ivf_int4_order_word.argtypes = [ctypes.c_int]
-    lib.gvdb_ivf_probe_int4.restype = ctypes.c_int
-    lib.gvdb_ivf_probe_int4.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.gvdb_ivf_scratch_words.restype = ctypes.c_long
+    lib.gvdb_ivf_scratch_words.argtypes = [ctypes.c_int] * 4
+    lib.gvdb_ivf_order_word.restype = ctypes.c_long
+    lib.gvdb_ivf_order_word.argtypes = [ctypes.c_int]
+    lib.gvdb_ivf_int8_plan.restype = ctypes.c_int
+    lib.gvdb_ivf_int8_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.gvdb_ivf_probe_int8, lib.gvdb_ivf_probe_int4):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
 
 
 def build_kernels() -> ctypes.CDLL:
@@ -94,10 +100,10 @@ def build_kernels() -> ctypes.CDLL:
     return _build.load("ivf_probe", _bind)
 
 
-# format code (none for int4: its own C entries), bytes of a stored row per
-# query dim, wrapper name
+# format code (none for the grouped probes: their own C entries), bytes of
+# a stored row per query dim, wrapper name
 _FORMATS = {"bf16": (0, 2.0, "ivf_probe"), "f32": (1, 4.0, "ivf_probe"),
-            "int8": (2, 1.0, "ivf_probe_int8"), "int4": (None, 0.5, "ivf_probe_int4")}
+            "int8": (None, 1.0, "ivf_probe_int8"), "int4": (None, 0.5, "ivf_probe_int4")}
 
 
 def _full_nblocks(l: int, c: int, device) -> torch.Tensor:
@@ -106,8 +112,8 @@ def _full_nblocks(l: int, c: int, device) -> torch.Tensor:
 
 def _launch(fmt: str, q: torch.Tensor, probe: torch.Tensor, data: torch.Tensor,
             w: torch.Tensor, nblocks: Optional[torch.Tensor]) -> torch.Tensor:
-    """Run the probe kernel for ``fmt`` (int4: the grouping pass, then the
-    grouped kernel): [B, P, C] f32."""
+    """Run the probe kernel for ``fmt`` (int8, int4: the grouping pass,
+    then the grouped kernel): [B, P, C] f32."""
     code, row_bytes_per_dim, name = _FORMATS[fmt]
     dev = data.device
     if dev.type != "cuda" or any(t.device != dev for t in (q, probe, w)):
@@ -137,15 +143,15 @@ def _launch(fmt: str, q: torch.Tensor, probe: torch.Tensor, data: torch.Tensor,
     lib = build_kernels()
     out = torch.empty((b, probe.shape[1], c), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if fmt == "int4":   # the grouping pass, then the grouped kernel: one C call
+    if code is None:    # the grouping pass, then the grouped kernel: one C call
         if qc.data_ptr() % 16:
             qc = qc.clone()
-        scratch = torch.empty(lib.gvdb_ivf_int4_scratch_words(probe.numel(), l, b, d),
+        scratch = torch.empty(lib.gvdb_ivf_scratch_words(probe.numel(), l, b, d),
                               dtype=torch.int32, device=dev)
-        rc = lib.gvdb_ivf_probe_int4(dev.index or 0, qc.data_ptr(), pc.data_ptr(),
-                                     data.data_ptr(), wc.data_ptr(), nb.data_ptr(),
-                                     out.data_ptr(), scratch.data_ptr(), b, probe.shape[1], l,
-                                     c, d, stream)
+        entry = lib.gvdb_ivf_probe_int8 if fmt == "int8" else lib.gvdb_ivf_probe_int4
+        rc = entry(dev.index or 0, qc.data_ptr(), pc.data_ptr(), data.data_ptr(),
+                   wc.data_ptr(), nb.data_ptr(), out.data_ptr(), scratch.data_ptr(), b,
+                   probe.shape[1], l, c, d, stream)
         _raise_on(lib, rc, name)
         LAUNCHES["ivf_group"] += 1
     else:
@@ -163,7 +169,7 @@ def _raise_on(lib: ctypes.CDLL, rc: int, name: str) -> None:
                            f"{lib.gvdb_cuda_error_string(rc).decode()} ({rc})")
 
 
-# -- the int4 probe's grouping pass -----------------------------------------------
+# -- the grouped probes' grouping pass ---------------------------------------------
 
 
 def group_cells_ref(probe: torch.Tensor, n_lists: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -186,9 +192,9 @@ def group_cells(probe: torch.Tensor, n_lists: int) -> Tuple[torch.Tensor, torch.
     """``(order, start)`` as ``group_cells_ref`` defines them, except that on
     the card the cells of one bin come in any order (a counting sort with
     atomics). On a CUDA tensor the hand-written pass of ``csrc/ivf_probe.cu``
-    (one launch, counted in ``LAUNCHES["ivf_group"]``; the int4 probe runs
-    the same pass inside its own C call) or raises; on a CPU tensor
-    ``group_cells_ref``."""
+    (one launch, counted in ``LAUNCHES["ivf_group"]``; the int8 and int4
+    probes run the same pass inside their own C calls) or raises; on a CPU
+    tensor ``group_cells_ref``."""
     if probe.device.type == "cpu":
         return group_cells_ref(probe, n_lists)
     n = probe.numel()
@@ -197,13 +203,13 @@ def group_cells(probe: torch.Tensor, n_lists: int) -> Tuple[torch.Tensor, torch.
                          f"{tuple(probe.shape)} over {n_lists} lists")
     pc = probe.contiguous()
     lib = build_kernels()
-    scratch = torch.empty(lib.gvdb_ivf_int4_scratch_words(n, n_lists, 0, 0), dtype=torch.int32,
+    scratch = torch.empty(lib.gvdb_ivf_scratch_words(n, n_lists, 0, 0), dtype=torch.int32,
                           device=probe.device)
     _raise_on(lib, lib.gvdb_ivf_group(
         probe.device.index or 0, pc.data_ptr(), n, n_lists, scratch.data_ptr(),
         torch.cuda.current_stream(probe.device).cuda_stream), "ivf_group")
     LAUNCHES["ivf_group"] += 1
-    first = lib.gvdb_ivf_int4_order_word(n_lists)
+    first = lib.gvdb_ivf_order_word(n_lists)
     return scratch[first:first + n], scratch[:n_lists + 2]
 
 

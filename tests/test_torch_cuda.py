@@ -408,21 +408,27 @@ _PROBES = {"bf16": ("ivf_probe", tivf.ivf_probe_scores, tivf.ivf_probe_scores_re
 def test_ivf_probe_kernel_matches_plain(cuda, fmt):
     name, kern, plain = _PROBES[fmt]
     args = [t.to(cuda) for t in _probe_case(fmt)]
-    before = tivf.LAUNCHES[name]
+    before, grouped = tivf.LAUNCHES[name], tivf.LAUNCHES["ivf_group"]
     got = kern(*args)
     torch.cuda.synchronize()
     assert tivf.LAUNCHES[name] == before + 1
+    # the int8 and int4 probes run their grouping pass first
+    assert tivf.LAUNCHES["ivf_group"] == grouped + (fmt in ("int8", "int4"))
     want = plain(*args)
     assert torch.equal(got, want)
     assert (got[args[1] == 2] == -1e9).all()        # list 2 has nblocks 0
 
 
-def _int4_case(kind, d=128, seed=0):
-    """An int4 probe case whose cells group in a given way: "split" (one list
-    probed by 21 cells: more than a group holds), "one_list" (every cell on
-    one list), "bad_id" (ids -1, L and 2^30 among valid ones), "nblocks" (0,
-    a negative count and counts past the capacity)."""
-    q, probe, data, w, nb = _probe_case("int4", d=d, b=24, p=6, seed=seed)
+def _grouping_case(fmt, kind, d=128, seed=0):
+    """An int8 or int4 probe case whose cells group in a given way: "split"
+    (one list probed by 21 cells: more than a group holds), "one_list" (every
+    cell on one list), "bad_id" (ids -1, L and 2^30 among valid ones),
+    "nblocks" (0, a negative count and counts past the capacity). int8 codes
+    take every value in [-128, 127]."""
+    q, probe, data, w, nb = _probe_case(fmt, d=d, b=24, p=6, seed=seed)
+    if fmt == "int8":
+        g = np.random.default_rng(seed + 1)
+        data = torch.from_numpy(g.integers(-128, 128, tuple(data.shape)).astype(np.int8))
     if kind == "split":
         probe.view(-1)[:21] = 3
     elif kind == "one_list":
@@ -441,7 +447,7 @@ def test_ivf_probe_int4_grouping_cases(cuda, kind, d):
     """B5 (grouping pass + grouped kernel) equals its plain version on
     integer data however the cells group; a cell with an id outside [0, L)
     is -1e9 everywhere."""
-    q, probe, data, w, nb = (t.to(cuda) for t in _int4_case(kind, d=d))
+    q, probe, data, w, nb = (t.to(cuda) for t in _grouping_case("int4", kind, d=d))
     before = dict(tivf.LAUNCHES)
     got = tivf.ivf_probe_scores_int4(q, probe, data, w, nb)
     torch.cuda.synchronize()
@@ -452,6 +458,44 @@ def test_ivf_probe_int4_grouping_cases(cuda, kind, d):
     assert (got[bad] == -1e9).all()
     if kind == "nblocks":
         assert (got[probe == 0] == -1e9).all() and (got[probe == 1] == -1e9).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 128, 384])
+@pytest.mark.parametrize("kind", ["split", "one_list", "bad_id", "nblocks"])
+def test_ivf_probe_int8_grouping_cases(cuda, kind, d):
+    """B4 (grouping pass + persistent grouped kernel) equals its plain version
+    on integer data however the cells group, one launch of each a call; a
+    cell with an id outside [0, L) is -1e9 everywhere."""
+    q, probe, data, w, nb = (t.to(cuda) for t in _grouping_case("int8", kind, d=d))
+    before = dict(tivf.LAUNCHES)
+    got = tivf.ivf_probe_scores_int8(q, probe, data, w, nb)
+    torch.cuda.synchronize()
+    assert tivf.LAUNCHES["ivf_probe_int8"] == before["ivf_probe_int8"] + 1
+    assert tivf.LAUNCHES["ivf_group"] == before["ivf_group"] + 1
+    assert torch.equal(got, tivf.ivf_probe_scores_int8_ref(q, probe, data, w, nb))
+    bad = (probe < 0) | (probe >= w.shape[0])
+    assert (got[bad] == -1e9).all()
+    if kind == "nblocks":
+        assert (got[probe == 0] == -1e9).all() and (got[probe == 1] == -1e9).all()
+
+
+@pytest.mark.cuda
+def test_ivf_probe_int8_every_byte_value(cuda):
+    """Every int8 value at every position of a 16-byte chunk, scored against
+    one-hot queries, comes out as itself: the kernel's byte -> bf16 route is
+    exact."""
+    d, cap = 128, 256
+    codes = ((torch.arange(cap)[:, None] + torch.arange(d)[None, :]) % 256 - 128).to(torch.int8)
+    codes = codes.reshape(1, cap, d).to(cuda)
+    q = torch.eye(d, device=cuda)
+    probe = torch.zeros((d, 1), dtype=torch.int32, device=cuda)
+    w = torch.ones((1, cap), device=cuda)
+    nb = torch.tensor([cap // 64], dtype=torch.int32, device=cuda)
+    got = tivf.ivf_probe_scores_int8(q, probe, codes, w, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0, :], codes[0].T.float())
+    assert torch.equal(got, tivf.ivf_probe_scores_int8_ref(q, probe, codes, w, nb))
 
 
 @pytest.mark.cuda
@@ -475,27 +519,49 @@ def test_group_cells_kernel_matches_plain(cuda, b, p, n_lists):
         assert torch.equal(torch.sort(got[lo:hi]).values, torch.sort(want_order[lo:hi]).values)
 
 
-@pytest.mark.cuda
-def test_int4_probe_raises_when_the_kernel_cannot_load(cuda, monkeypatch):
-    """A CUDA tensor launches B5 or raises; it never falls back to the plain
-    version, through the op, the grouping pass or the index."""
+def _grouped_probe_raises_without_library(cuda, monkeypatch, fmt, cls):
+    """A CUDA tensor launches the grouped probe of ``fmt`` or raises; it never
+    falls back to the plain version, through the op, the grouping pass or the
+    index ``cls``."""
     def no_library():
         raise RuntimeError("nvcc not found")
 
+    name, kern, _ = _PROBES[fmt]
     monkeypatch.setattr(tivf, "build_kernels", no_library)
-    q, probe, data, w, nb = (t.to(cuda) for t in _probe_case("int4"))
+    q, probe, data, w, nb = (t.to(cuda) for t in _probe_case(fmt))
+    before = dict(tivf.LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc"):
-        tivf.ivf_probe_scores_int4(q, probe, data, w, nb)
+        kern(q, probe, data, w, nb)
     with pytest.raises(RuntimeError, match="nvcc"):
         tivf.group_cells(probe, w.shape[0])
     g = np.random.default_rng(5)
     v = g.standard_normal((5000, 128)).astype(np.float32)
-    idx = Int4IvfDeviceIndex(128, nlist=16, nprobe=4, initial_capacity=2048, device=cuda)
+    idx = cls(128, nlist=16, nprobe=4, initial_capacity=2048, device=cuda)
     idx.add_batch([f"d{i}" for i in range(len(v))], v)
     with pytest.raises(RuntimeError, match="nvcc"):
         idx.search_batch(v[:2], 3)
+    assert tivf.LAUNCHES == before
+    return q, probe, data, w, nb, kern
+
+
+@pytest.mark.cuda
+def test_int4_probe_raises_when_the_kernel_cannot_load(cuda, monkeypatch):
+    """A CUDA tensor launches B5 or raises; it never falls back to the plain
+    version, through the op, the grouping pass or the index."""
+    q, probe, data, w, nb, kern = _grouped_probe_raises_without_library(
+        cuda, monkeypatch, "int4", Int4IvfDeviceIndex)
     with pytest.raises(ValueError, match="16 bytes"):
-        tivf.ivf_probe_scores_int4(q[:, :48], probe, data[:, :, :24], w, nb)
+        kern(q[:, :48], probe, data[:, :, :24], w, nb)
+
+
+@pytest.mark.cuda
+def test_int8_probe_raises_when_the_kernel_cannot_load(cuda, monkeypatch):
+    """A CUDA tensor launches B4 or raises; it never falls back to the plain
+    version, through the op, the grouping pass or the index."""
+    q, probe, data, w, nb, kern = _grouped_probe_raises_without_library(
+        cuda, monkeypatch, "int8", Int8IvfDeviceIndex)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kern(q[:, :24], probe, data[:, :, :24], w, nb)
 
 
 @pytest.mark.cuda

@@ -52,23 +52,23 @@ def _plane8(w):
     return jnp.broadcast_to(jnp.asarray(w)[:, None, :], (w.shape[0], 8, w.shape[1]))
 
 
-def _lists(rng, fmt):
+def _lists(rng, fmt, d=D):
     """[L, C, width] list data in the JAX and torch types, a [L, C] weight
     plane that is 0 past each list's high-water mark and in a run inside
     list 0, and ragged nblocks (0, odd and full counts)."""
     nb = np.array([2, 1, 0, 2, 1, 2, 2, 1], np.int32)
-    x = rng.standard_normal((L * C, D)).astype(np.float32)
+    x = rng.standard_normal((L * C, d)).astype(np.float32)
     w = rng.uniform(0.5, 2.0, (L, C)).astype(np.float32)
     for lst in range(L):
         w[lst, 64 * nb[lst]:] = 0.0
     w[0, 10:20] = 0.0
     if fmt == "int8":
-        data = np.asarray(jq8(jnp.asarray(x))[0]).reshape(L, C, D)
+        data = np.asarray(jq8(jnp.asarray(x))[0]).reshape(L, C, d)
         return jnp.asarray(data), _t(data), w, nb
     if fmt == "int4":
-        data = np.asarray(jq4(jnp.asarray(x))[0]).reshape(L, C, D // 2)
+        data = np.asarray(jq4(jnp.asarray(x))[0]).reshape(L, C, d // 2)
         return jnp.asarray(data), _t(data), w, nb
-    x = x.reshape(L, C, D)
+    x = x.reshape(L, C, d)
     if fmt == "f32":
         return jnp.asarray(x), _t(x), w, nb
     return jnp.asarray(x).astype(jnp.bfloat16), _t(x).to(torch.bfloat16), w, nb
@@ -93,10 +93,13 @@ def _assert_scores(got, want, tol):
     assert_close(got[live], want[live], tol)
 
 
-@pytest.mark.parametrize("fmt", ["bf16", "f32", "int8", "int4"])
-def test_probe_ref_matches_pallas(rng, fmt):
-    jdata, tdata, w, nb = _lists(rng, fmt)
-    q = rng.standard_normal((B, D)).astype(np.float32)
+# int8 also at D = 384, the width the projected kinds probe at
+@pytest.mark.parametrize("fmt,d", [("bf16", D), ("f32", D), ("int8", D), ("int4", D),
+                                   ("int8", 384)],
+                         ids=["bf16", "f32", "int8", "int4", "int8-d384"])
+def test_probe_ref_matches_pallas(rng, fmt, d):
+    jdata, tdata, w, nb = _lists(rng, fmt, d)
+    q = rng.standard_normal((B, d)).astype(np.float32)
     want = _JAX_PROBE[fmt](jnp.asarray(q), jnp.asarray(PROBE), jdata, _plane8(w),
                            nblocks=jnp.asarray(nb), interpret=True)
     got = _PORT_REF[fmt](_t(q), _t(PROBE), tdata, _t(w), _t(nb))
@@ -106,6 +109,26 @@ def test_probe_ref_matches_pallas(rng, fmt):
     assert torch.equal(_PORT_WRAP[fmt](_t(q), _t(PROBE), tdata, _t(w), _t(nb)), got)
     # list 2 has nblocks 0: every cell of it is invalid
     assert (to_np(got)[PROBE == 2] == -1e9).all()
+
+
+def test_int8_unpack_route_is_exact_on_every_byte():
+    """The int8 probe kernel's byte -> bf16 route, emulated bit for bit in
+    numpy on all 256 byte values: u = s ^ 0x80 placed under 0x4B0000 is the
+    f32 2^23 + u; subtracting 2^23 + 128 leaves s exactly, with the low 16
+    bits of the float zero, so its high half is s in bf16."""
+    s = np.arange(-128, 128, dtype=np.int32)
+    u = (s & 0xFF) ^ 0x80
+    f = (u | 0x4B000000).astype(np.uint32).view(np.float32)
+    x = f - np.float32(8388736.0)                      # f32 arithmetic, as the kernel's fadd
+    assert x.dtype == np.float32
+    np.testing.assert_array_equal(x, s.astype(np.float32))
+    bits = x.view(np.uint32)
+    assert (bits & 0xFFFF == 0).all()                  # exact in bf16
+    hi = (bits >> 16).astype(np.uint16)                # the prmt of the high halves
+    np.testing.assert_array_equal(
+        hi, torch.from_numpy(s.astype(np.float32)).to(torch.bfloat16).view(torch.int16)
+        .numpy().view(np.uint16))
+    np.testing.assert_array_equal((hi.astype(np.uint32) << 16).view(np.float32), s)
 
 
 def test_probe_ref_honours_nblocks_without_zero_weights(rng):
