@@ -54,7 +54,22 @@ the port's paths through ``VectorDatabase`` on the card:
   grouped route (a grouping pass, then the persistent kernel), the search's
   through the pairs route, each route checked at all three shapes with the
   ids of a real build round and a real search and timed in turns with the
-  other (the pairs route is the parent tree's kernel).
+  other (the pairs route is the parent tree's kernel);
+- the embedded deployment at the default configuration: ``EmbeddedVectorDB``
+  over a file store in a temporary directory with the device hash embedder
+  (``embedding.provider = "device"``: 32,768 buckets, the JAX package's
+  projection, checked on 4,096 entries against the numpy stream), 131,072
+  synthetic text documents ingested through ``add_documents_pipelined`` on
+  the device-direct path, the stored rows and the card's embeddings against
+  the CPU port's, ``search_documents``, single queries from 32 threads through
+  the batching executor, the B = 256 batch through B1 against the oracle over
+  the index's rows and B1 against its plain version on the index's own plane,
+  filters, the enterprise wrappers, index snapshot, backup
+  and restore, close and reopen.
+
+B3, B4 and B5 are timed beside their nearest library composition (the probed
+lists' rows gathered, B4's codes cast and B5's nibbles unpacked to bf16,
+``torch.bmm`` with f32 out, multiply, where).
 
 With ``--parent DIR`` (the parent commit's tree, unpacked), the hamming
 phase and the int8 and int4 probes' main shapes also build the parent's
@@ -65,8 +80,10 @@ parent); without it those comparisons are skipped and logged as such.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Every phase raises on failure. Earlier lines report each phase;
-the line before the last is a JSON object with one entry per kernel (B4/B5's
-entries carry their launches on the IVF path; the projected path's own run
+the line before the last is a JSON object with one entry per kernel (B1's
+entry carries its launches on the flat and the embedded paths, split under
+"launches_by_path", and its check and times on the embedded index's plane
+under "embedded"; B4/B5's entries carry their launches on the IVF path; the projected path's own run
 at D = 384 sits under their "d384" key; B4/B5's grouping pass has its own
 entry, "ivf_group", whose launches are both paths' with the split under
 "launches_by_path"; B11 has one entry for the graph
@@ -125,6 +142,13 @@ LOWRANK_NOISE = 0.02      # full-space noise
 # phase took 276.5 s of its 240 s share of the limit on an H100)
 GRAPH_ROWS = 1 << 17
 GRAPH_BUDGET_S = 240.0
+# the embedded deployment: the graph phase's size, a desktop or
+# single-service corpus; at 131,072 rows a batch larger than 128 takes B1
+EMBED_DOCS = 1 << 17
+EMBED_VOCAB = 20_000
+EMBED_BATCH = 256
+EMBED_BUDGET_S = 240.0
+EMBED_TOL = 1e-5          # the card's f32 embedding against the CPU port's
 
 DEV = "cuda"              # where the port's tensors live
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak bandwidth
@@ -172,6 +196,8 @@ KERNELS = {
 }
 # the parent commit's tree (--parent): its B4 / B5 / B6 kernels are timed in turns
 PARENT = None
+# the card's name and power limit, as nvidia-smi gives them (set by setup())
+CARD = None
 # IVF kind -> the probe kernel its main search runs
 IVF_KERNEL = {"ivf": "ivf_probe", "ivf_int8": "ivf_probe_int8", "ivf_int4": "ivf_probe_int4"}
 
@@ -331,9 +357,11 @@ def setup():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         sys.exit(2)
+    global CARD
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    CARD = smi
     log(smi)
     from grape_vector_db_tpu_torch.ops import _build, gather, hamming, ivf, segmax
 
@@ -1432,13 +1460,27 @@ def grouped_details(name, qp, probe, data, w, nb, label):
     return extra, group
 
 
-def int8_library_ms(qp, probe, codes, w, nb):
-    """The nearest library composition of B4, timed on the same inputs: the
-    probed lists' codes gathered, .to(bf16), torch.bmm with q' (f32 out),
-    times the weights, where (5 calls, plus the masks' index arithmetic), in
-    query chunks of at most 2^30 gathered codes."""
+# the probe kernel -> (its plain version's name in ops/ivf, the library
+# composition's first calls)
+PROBE_LIBRARY = {
+    "ivf_probe": ("ivf_probe_scores_ref", "the probed lists' rows gathered (bf16)"),
+    "ivf_probe_int8": ("ivf_probe_scores_int8_ref",
+                       "the probed lists' codes gathered, .to(bf16)"),
+    "ivf_probe_int4": ("ivf_probe_scores_int4_ref",
+                       "the probed lists' codes gathered, the nibbles unpacked (two masks, "
+                       "a shift, cat) to bf16 levels, minus 8"),
+}
+
+
+def probe_library_ms(name, qp, probe, data, w, nb):
+    """The nearest library composition of B3, B4 or B5, timed on the same
+    inputs: the probed lists' rows gathered (B4: .to(bf16); B5: the nibbles
+    unpacked to bf16 levels first), torch.bmm with q' (f32 out), times the
+    weights, where (plus the masks' index arithmetic), in query chunks of at
+    most 2^30 gathered elements. Returns (ms, a description)."""
     from grape_vector_db_tpu_torch.ops import ivf as tivf
 
+    ref_name, first = PROBE_LIBRARY[name]
     n_lists, cap = w.shape
     b, d = qp.shape
     p_ = probe.shape[1]
@@ -1451,26 +1493,32 @@ def int8_library_ms(qp, probe, codes, w, nb):
     out = torch.empty((b, p_, cap), dtype=torch.float32, device=w.device)
     step = max(1, (1 << 30) // (p_ * cap * d))
 
+    def rows_of(sel):
+        rows = data[sel]                                   # [bs, P, C, width]
+        if name == "ivf_probe_int4":
+            rows = torch.cat([rows & 15, (rows >> 4) & 15], dim=-1).to(torch.bfloat16) - 8
+        return rows.to(torch.bfloat16)
+
     def call():
         for b0 in range(0, b, step):
-            rows = codes[pr[b0:b0 + step]].to(torch.bfloat16)        # [bs, P, C, D]
+            sel = pr[b0:b0 + step]
+            rows = rows_of(sel)
             bs = rows.shape[0]
             dots = torch.bmm(rows.reshape(bs, p_ * cap, d), qb[b0:b0 + step, :, None],
                              out_dtype=torch.float32).reshape(bs, p_, cap)
-            wr = w[pr[b0:b0 + step]]
-            live = ((wr != 0) & (pos < lim[pr[b0:b0 + step]][:, :, None])
-                    & known[b0:b0 + step, :, None])
+            wr = w[sel]
+            live = ((wr != 0) & (pos < lim[sel][:, :, None]) & known[b0:b0 + step, :, None])
             out[b0:b0 + step] = torch.where(live, dots * wr, -1e9)
         return out
 
     got = call().clone()
     torch.cuda.synchronize()
-    want = tivf.ivf_probe_scores_int8_ref(qp, probe, codes, w, nb)
+    want = getattr(tivf, ref_name)(qp, probe, data, w, nb)
     inv = want == -1e9
-    require(torch.equal(got == -1e9, inv), "ivf_probe_int8: the library composition's -1e9 differ")
+    require(torch.equal(got == -1e9, inv), f"{name}: the library composition's -1e9 differ")
     require((got - want)[~inv].abs().max().item() <= TOL,
-            "ivf_probe_int8: the library composition disagrees with the plain version")
-    return cuda_ms(call, 5)
+            f"{name}: the library composition disagrees with the plain version")
+    return cuda_ms(call, 5), f"composition: {first}, torch.bmm out_dtype=f32, multiply, where"
 
 
 def probe_main_shapes(kind, idx, corpus):
@@ -1519,14 +1567,9 @@ def probe_main_shapes(kind, idx, corpus):
     log(f"[times] {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
         f"reads per cell {per_cell / 1e9:.3f} GB, each probed list once {unique / 1e9:.3f} GB "
         f"({len(torch.unique(probe))} lists); bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    stats = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b,
-             "library_ms": None}
-    if kind == "ivf_int8":
-        stats["library_ms"] = int8_library_ms(qp, probe, data, w, nb)
-        stats["library"] = ("composition: codes gather, .to(bf16), torch.bmm out_dtype=f32, "
-                            "multiply, where")
-        log(f"[times] {name}: library composition ({stats['library']}) "
-            f"{stats['library_ms']:.4f} ms")
+    stats = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b}
+    stats["library_ms"], stats["library"] = probe_library_ms(name, qp, probe, data, w, nb)
+    log(f"[times] {name}: library {stats['library']}: {stats['library_ms']:.4f} ms")
     if name in GROUPED:
         extra, stats["group"] = grouped_details(name, qp, probe, data, w, nb, f"D={DIM}")
         stats.update(extra)
@@ -2126,12 +2169,10 @@ def proj_probe_shapes(name, idx, corpus):
         f"over [{n_lists},{cap},{data.shape[2]}] {data.dtype}: max_abs_err {err:.3g}")
     log(f"[times] {name} D={PROJ_DIM}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
         f"{p2:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    stats = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b,
-             "library_ms": None}
-    if name == "ivf_probe_int8":
-        stats["library_ms"] = int8_library_ms(qp, probe, data, w, nb)
-        log(f"[times] {name} D={PROJ_DIM}: library composition (codes gather, .to(bf16), "
-            f"torch.bmm out_dtype=f32, multiply, where) {stats['library_ms']:.4f} ms")
+    stats = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b}
+    stats["library_ms"], stats["library"] = probe_library_ms(name, qp, probe, data, w, nb)
+    log(f"[times] {name} D={PROJ_DIM}: library {stats['library']}: "
+        f"{stats['library_ms']:.4f} ms")
     extra, stats["group"] = grouped_details(name, qp, probe, data, w, nb, f"D={PROJ_DIM}")
     stats.update(extra)
     return stats
@@ -2572,6 +2613,392 @@ def graph_path(corpus):
     return launches, build_launches, group_launches, stats
 
 
+# -- the embedded deployment: EmbeddedVectorDB, the file store, the device embedder ----------
+
+
+class TextCorpus:
+    """``n`` short sentences (6-14 words) over a synthetic vocabulary of
+    ``EMBED_VOCAB`` words, chosen with Zipf-skewed frequencies (p ~ 1/r^1.1),
+    so frequent words recur across documents; one document in 16 copies an
+    earlier one with one word changed, so near-duplicate texts exist. Each
+    carries ``topic`` (i % 16) for filters. Made from ``SEED``."""
+
+    def __init__(self, n: int):
+        rng = np.random.default_rng(SEED + 7)
+        syl = np.array(["ka", "lo", "mi", "ne", "ru", "ta", "vo", "xe", "zi", "pa", "do",
+                        "fe", "gu", "hi", "ja", "be", "so", "qu", "wy", "ol"])
+        words = set()
+        while len(words) < EMBED_VOCAB:
+            words.add("".join(rng.choice(syl, int(rng.integers(2, 5)))))
+        vocab = np.array(sorted(words))
+        rng.shuffle(vocab)
+        p = 1.0 / np.arange(1, EMBED_VOCAB + 1) ** 1.1
+        lens = rng.integers(6, 15, n)
+        picks = rng.choice(EMBED_VOCAB, size=int(lens.sum()), p=p / p.sum())
+        ends = np.cumsum(lens)
+        toks = [picks[e - ln:e].copy() for e, ln in zip(ends, lens)]
+        for i in np.flatnonzero(rng.random(n) < 1 / 16):
+            if i:
+                src = toks[int(rng.integers(0, i))].copy()
+                src[int(rng.integers(0, len(src)))] = int(rng.integers(0, EMBED_VOCAB))
+                toks[i] = src
+        self.texts = [" ".join(vocab[t]) for t in toks]
+        self.n = n
+
+    def docs(self):
+        from grape_vector_db_tpu_torch import Document
+
+        return [Document(id=f"doc{i}", content=t, metadata={"topic": i % 16})
+                for i, t in enumerate(self.texts)]
+
+
+def f16_ulps(a: np.ndarray, b: np.ndarray) -> float:
+    """The largest |a - b| of two f16 arrays in units of the f16 spacing at
+    the larger magnitude."""
+    big = np.maximum(np.abs(a), np.abs(b)).astype(np.float16)
+    return float((np.abs(a.astype(np.float32) - b.astype(np.float32))
+                  / np.spacing(big).astype(np.float32)).max())
+
+
+def index_oracle(idx, queries: np.ndarray, deep=64):
+    """Cosine top-``deep`` over the index's own rows (``get_all``: the stored
+    bf16 values as f32), an f32 product on the card with TF32 off (not the
+    port's kernels): (values, doc numbers) for check_hits."""
+    ids, vecs = idx.get_all()
+    x = torch.from_numpy(vecs).to(DEV)
+    q = torch.nn.functional.normalize(torch.from_numpy(queries).to(DEV), dim=1)
+    s = (q @ x.T) / torch.linalg.vector_norm(x, dim=1).clamp(min=1e-12)[None, :]
+    vals, rows = torch.topk(s, deep, dim=1)
+    nums = np.array([int(i[3:]) for i in ids])
+    return vals.cpu().numpy(), nums[rows.cpu().numpy()]
+
+
+def check_batch(label, hits, idx, queries):
+    """``hits`` against the oracle over the index's rows, by the flat path's
+    rule (ids as sets, near ties within TOL of the k-th score)."""
+    o_vals, o_ids = index_oracle(idx, queries)
+    check_hits(label, hits, o_vals, o_ids, 10)
+
+
+def hit_arrays(hits):
+    """(scores, doc numbers) of a batch of hits, for check_hits."""
+    return (np.array([[p.score for p in row] for row in hits]),
+            np.array([[int(p.id[3:]) for p in row] for row in hits]))
+
+
+def same_rows(label, a, b, tol=1e-6):
+    """Two batches of hits with the same ids in the same order and scores
+    within ``tol``."""
+    for r, (x, y) in enumerate(zip(a, b)):
+        require([p.id for p in x] == [p.id for p in y], f"{label} q{r}: ids differ")
+        d = max((abs(p.score - q.score) for p, q in zip(x, y)), default=0.0)
+        require(d <= tol, f"{label} q{r}: scores differ by {d}")
+
+
+def embedded_path():
+    """The embedded deployment at the default configuration on the card:
+    ``EmbeddedVectorDB`` over a file store in a temporary directory,
+    ``embedding.provider = "device"`` (D = 768, cosine, bf16 flat, 32,768
+    buckets, 256 features, chunk 1024). Projection check, pipelined
+    device-direct ingest of ``EMBED_DOCS`` text documents, the stored rows
+    and the card's embedding against the CPU port's, ``search_documents``,
+    single queries from 32 threads through the batching executor, the B = 256
+    batch through B1 against the oracle and B1 against its plain version on
+    the index's plane, filters, the enterprise wrappers,
+    index snapshot, backup and restore, close and reopen at the default
+    startup timeout. Returns B1's entry for this path: the batch call's
+    launches and ``embedded_b1_check``'s figures."""
+    import tempfile
+    import threading
+
+    from grape_vector_db_tpu_torch import (Condition, Document, EmbeddedConfig,
+                                           EmbeddedVectorDB, Filter, SearchRequest,
+                                           VectorDbConfig)
+    from grape_vector_db_tpu_torch.errors import AuthorizationError
+    from grape_vector_db_tpu_torch.services.device_embedder import DeviceHashEmbedder
+    from grape_vector_db_tpu_torch.services.enterprise import Role
+    from grape_vector_db_tpu_torch.storage import file as tfile
+    from grape_vector_db_tpu_torch.utils import jax_random
+
+    t_phase = time.perf_counter()
+    card = CARD
+    codec = "zstandard" if tfile._zstandard() is not None else "zlib (zstandard does not import)"
+    corpus = TextCorpus(EMBED_DOCS)
+    docs = corpus.docs()
+    tmp = tempfile.TemporaryDirectory(prefix="gvdb_embedded_")
+    cfg = EmbeddedConfig(data_dir=os.path.join(tmp.name, "data"), db=VectorDbConfig())
+    cfg.db.embedding.provider = "device"
+    t0 = time.perf_counter()
+    edb = EmbeddedVectorDB(cfg, device=DEV)
+    db = edb.db
+    emb = getattr(db.embedder, "inner", db.embedder)
+    require(isinstance(emb, DeviceHashEmbedder) and emb.device.type == torch.device(DEV).type,
+            f"the db's embedder is {type(emb).__name__} on {getattr(emb, 'device', None)}")
+    log(f"[embedded] EmbeddedVectorDB on {DEV} ({card}): index {db.index.kind}, "
+        f"{db.index.storage_dtype}, D {db.config.vector_dimension}, {emb._buckets} buckets, "
+        f"{emb._max_features} features, chunk {emb._chunk}; store {type(db.store).__name__} "
+        f"compressed with {codec}; {corpus.n} documents over {EMBED_VOCAB} words; "
+        f"startup_timeout_s {cfg.startup_timeout_s:g} (the default); "
+        f"open {time.perf_counter() - t0:.2f} s")
+
+    # 1. the projection, checked against the numpy stream on 4,096 entries
+    t0 = time.perf_counter()
+    proj = emb._projection()
+    torch.cuda.synchronize()
+    proj_s = time.perf_counter() - t0
+    gen = np.random.default_rng(SEED + 8)
+    flat_idx = gen.choice(proj.numel(), 4096, replace=False)
+    table = jax_random.normal_bf16_table().view(torch.int16).numpy()
+    want = table[jax_random.random_bits8(jax_random.prng_key(emb._seed), flat_idx) >> 1]
+    got = proj.reshape(-1)[torch.from_numpy(flat_idx).to(proj.device)].view(
+        torch.int16).cpu().numpy()
+    require(np.array_equal(got, want), "the projection differs from the numpy stream")
+    log(f"[embedded] projection [{emb._buckets}, {emb._dim}] bf16 built in {proj_s:.2f} s; "
+        f"4096 sampled entries bit-equal to the numpy threefry stream")
+
+    # the embedder alone: featurization (host) and the device step, apart
+    sample = corpus.texts[:16384]
+    t0 = time.perf_counter()
+    idx_f, val_f = emb._featurize(sample)
+    feat_s = time.perf_counter() - t0
+    emb._embed_chunk(idx_f[:emb._chunk], val_f[:emb._chunk], proj)     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, len(sample), emb._chunk):
+        emb._embed_chunk(idx_f[lo:lo + emb._chunk], val_f[lo:lo + emb._chunk], proj)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emb.embed_array(sample)
+    whole_s = time.perf_counter() - t0
+    log(f"[times] embedder on {card}: {len(sample)} texts: featurization {feat_s:.3f} s "
+        f"({len(sample) / feat_s:.0f} texts/s, host), device step {step_s:.3f} s "
+        f"({len(sample) / step_s:.0f} texts/s: scatter-add, bf16 product with f32 out, "
+        f"normalize, f16 copy), embed_array end to end {whole_s:.3f} s "
+        f"({len(sample) / whole_s:.0f} texts/s)")
+
+    # 2. pipelined device-direct ingest
+    calls = {"add_batch_device": 0, "add_batch": 0}
+    for name in calls:
+        fn = getattr(db.index, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+
+        setattr(db.index, name, counted)
+    t0 = time.perf_counter()
+    ids = db.add_documents_pipelined(docs, batch_size=4096, inflight=2)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    for name in calls:
+        delattr(db.index, name)
+    n_batches = -(-corpus.n // 4096)
+    require(ids == [d.id for d in docs], "pipelined ingest returned other ids")
+    require(calls == {"add_batch_device": n_batches, "add_batch": 0},
+            f"ingest took {calls}, wanted every one of {n_batches} batches device-direct")
+    require(len(db.index) == corpus.n and db.store.count() == corpus.n,
+            f"{len(db.index)} rows in the index, {db.store.count()} in the store")
+    log(f"[times] embedded ingest: {corpus.n} documents in {ingest_s:.2f} s "
+        f"({corpus.n / ingest_s:.0f} docs/s, add_documents_pipelined batch 4096, inflight 2; "
+        f"{calls['add_batch_device']} batches through add_batch_device, none through "
+        f"add_batch); capacity {db.index.capacity}")
+
+    # 3. the stored f16 rows of 512 documents against embed_array of their texts
+    pick = gen.choice(corpus.n, 512, replace=False)
+    ref = emb.embed_array([corpus.texts[i] for i in pick]).astype(np.float16)
+    stored = np.stack([np.asarray(db.store.get(f"doc{i}").embedding, np.float32)
+                       for i in pick]).astype(np.float16)
+    ulps = f16_ulps(stored, ref)
+    require(ulps <= 1.0, f"stored rows differ from embed_array by {ulps} f16 ulps")
+    log(f"[embedded] 512 stored f16 rows against embed_array of their texts: within "
+        f"{ulps:.0f} f16 ulp (the batch's product may sum in another order)")
+
+    # 4. the card's f32 embedding of 256 texts against the CPU port's
+    texts256 = [corpus.texts[i] for i in pick[:256]]
+    cpu_emb = DeviceHashEmbedder(device="cpu")
+    (c32, _), = [c for c in emb.embed_ingest(texts256)[0]]
+    (h32, _), = [c for c in cpu_emb.embed_ingest(texts256)[0]]
+    err = (c32[:256].cpu() - h32[:256]).abs().max().item()
+    require(err <= EMBED_TOL, f"card embedding differs from the CPU port's by {err}")
+    log(f"[embedded] 256 texts: the card's f32 rows within {err:.3g} of the CPU port's "
+        f"(tolerance {EMBED_TOL}: the same bf16 products summed in another order)")
+
+    # 5. search_documents finds each text's own document first
+    by_text = {}
+    for i, t in enumerate(corpus.texts):
+        by_text.setdefault(t, []).append(f"doc{i}")
+    t0 = time.perf_counter()
+    dup = 0
+    for i in pick[:64]:
+        res = db.search_documents(corpus.texts[i], limit=5)
+        top = res[0].document.id if res else None
+        if top != f"doc{i}":
+            require(top in by_text[corpus.texts[i]],
+                    f"search_documents for doc{i} returned {top} first")
+            dup += 1
+    sd_s = (time.perf_counter() - t0) / 64
+    log(f"[embedded] search_documents on 64 sampled texts: own document first "
+        f"{64 - dup}/64, a duplicate of its text first {dup}/64; {sd_s * 1e3:.1f} ms a call")
+
+    # 6. single queries from 32 threads through the batching executor
+    qv = np.stack([np.asarray(db.store.get(f"doc{i}").embedding, np.float32)
+                   for i in pick[:300]])
+    lat = [0.0] * 300
+    top1 = [None] * 300
+
+    def worker(w):
+        for j in range(w, 300, 32):
+            t1 = time.perf_counter()
+            row = edb.vector_search_one(qv[j], 10)
+            lat[j] = time.perf_counter() - t1
+            top1[j] = row[0] if row else None
+
+    before = edb.executor.batches_run
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(32)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    wall = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads), "a vector_search_one thread hung")
+    for j, i in enumerate(pick[:300]):
+        require(top1[j] is not None and top1[j].score > 0.99 and
+                top1[j].id in by_text[corpus.texts[i]],
+                f"vector_search_one of doc{i}'s row returned {top1[j]}")
+    batches = edb.executor.batches_run - before
+    p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
+    log(f"[times] embedded vector_search_one, 32 threads, 300 calls: p50 {p50:.3f} ms, "
+        f"p99 {p99:.3f} ms, {300 / wall:.0f} queries/s; {batches} executor batches "
+        f"(mean {300 / max(batches, 1):.1f} queries)")
+
+    # 7. the B = 256 batch through B1, against the oracle
+    queries = qv[:EMBED_BATCH] + 0.02 * gen.standard_normal(
+        (EMBED_BATCH, qv.shape[1])).astype(np.float32)
+    reset_counts()
+    batch = db.vector_search_batch(queries, 10)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["segmax4"] > 0, f"the B={EMBED_BATCH} batch never launched segmax4: {counts}")
+    check_batch(f"embedded batch B={EMBED_BATCH}", batch, db.index, queries)
+    b1 = embedded_b1_check(db.index, queries)
+    b1["launches"] = counts["segmax4"]
+    med = timed(lambda: db.vector_search_batch(queries, 10))
+    log(f"[times] embedded vector_search_batch B={EMBED_BATCH} k=10 at {corpus.n} documents: "
+        f"median {med * 1e3:.3f} ms of 20 ({EMBED_BATCH / med:.0f} queries/s); launches "
+        f"{ {k: v for k, v in counts.items() if v} }; agrees with the oracle (tolerance {TOL})")
+
+    # 8. filters, counting and listing
+    f3 = Filter(must=[Condition("topic", "eq", 3)])
+    want_n = len(range(3, corpus.n, 16))
+    fhits = edb.vector_search(SearchRequest(vector=queries[0].tolist(), limit=10, filter=f3))
+    require(len(fhits) == 10 and all(int(p.id[3:]) % 16 == 3 for p in fhits),
+            "a filtered search broke its filter")
+    require(db.count_documents(f3) == want_n and db.count_documents() == corpus.n,
+            "count_documents disagrees")
+    page = db.list_documents(offset=100, limit=50, filter=f3)
+    require(len(page) == 50 and all(d.metadata["topic"] == 3 for d in page),
+            "list_documents broke its filter")
+    require(len(db.list_documents(offset=0, limit=200)) == 200, "list_documents short")
+    log(f"[embedded] filtered search, count_documents ({want_n} of {corpus.n}) and "
+        f"list_documents obey the filter")
+
+    # 9. the enterprise wrappers
+    auth = db.enable_enterprise()
+    reader = auth.create_api_key("reader", Role.READ_ONLY_USER)
+    res = db.search_with_auth(reader.key, SearchRequest(vector=qv[0].tolist(), limit=5))
+    require(bool(res) and res[0].document.id in by_text[corpus.texts[pick[0]]],
+            "a READ_DATA key's search failed")
+    try:
+        db.add_documents_with_auth(reader.key, [Document(id="denied", content="no write")])
+        require(False, "a key without WRITE_DATA wrote")
+    except AuthorizationError:
+        pass
+    log("[embedded] enterprise: a READ_DATA key searches, a key without WRITE_DATA "
+        "cannot write")
+
+    # 10. persistence: index snapshot, backup and restore, close, reopen
+    snap = os.path.join(tmp.name, "index.snap")
+    t0 = time.perf_counter()
+    info = db.save_index(snap)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db.load_index(snap)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same_rows("after load_index", db.vector_search_batch(queries, 10), batch)
+    bak = os.path.join(tmp.name, "backup.gvdb")
+    t0 = time.perf_counter()
+    db.create_backup(bak)
+    backup_s = time.perf_counter() - t0
+    db.batch_delete_documents([f"doc{i}" for i in range(1000)])
+    require(db.count_documents() == corpus.n - 1000, "the delete before restore")
+    t0 = time.perf_counter()
+    db.restore_backup(bak)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require(db.count_documents() == corpus.n and len(db.index) == corpus.n,
+            "restore_backup did not bring the documents back")
+    restored = db.vector_search_batch(queries, 10)
+    check_batch("after restore_backup", restored, db.index, queries)
+    check_hits("after restore_backup against before", restored, *hit_arrays(batch), 10)
+    edb.close()
+    require(edb.state.value == "closed", f"state after close: {edb.state}")
+    t0 = time.perf_counter()
+    edb = EmbeddedVectorDB(cfg, device=DEV)
+    torch.cuda.synchronize()
+    reopen_s = time.perf_counter() - t0
+    db = edb.db
+    require(db.count_documents() == corpus.n and len(db.index) == corpus.n,
+            f"reopened with {db.count_documents()} documents, {len(db.index)} rows")
+    reopened = db.vector_search_batch(queries, 10)
+    check_batch("after reopen", reopened, db.index, queries)
+    check_hits("after reopen against restore", reopened, *hit_arrays(restored), 10)
+    health = edb.health_check()
+    require(health.status.value == "healthy", f"health after reopen: {health}")
+    edb.close()
+    tmp.cleanup()
+    log(f"[times] embedded persistence on {card} ({codec}): save_index {save_s:.2f} s "
+        f"({info['bytes'] / 1e6:.1f} MB), load_index {load_s:.2f} s, create_backup "
+        f"{backup_s:.2f} s, restore_backup {restore_s:.2f} s (rebuild included), reopen and "
+        f"rebuild {reopen_s:.2f} s (startup_timeout_s {cfg.startup_timeout_s:g}, the "
+        f"default); results equal after load_index, within the oracle's "
+        f"rule after restore and reopen (the rows come back from the store's f16 copy); "
+        f"health {health.status.value}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[time] embedded phase {phase_s:.1f} s (budget {EMBED_BUDGET_S:.0f} s"
+        f"{', over it' if phase_s > EMBED_BUDGET_S else ''})")
+    return b1
+
+
+def embedded_b1_check(idx, queries):
+    """B1 against its plain version on the embedded index's own plane: the
+    B = 256 queries prepared as the flat path prepares them, the index's
+    rows (its whole capacity) and their cosine weight plane. Also times
+    both in turns. Launches here are not counted as the path's."""
+    from grape_vector_db_tpu_torch.ops import segmax
+    from grape_vector_db_tpu_torch.ops.distance import prepare_queries
+
+    v = idx.vectors
+    n, d = v.shape
+    b = queries.shape[0]
+    q = prepare_queries(torch.from_numpy(queries).to(v.device), "cosine")
+    w = segmax.make_weight_plane(idx.norms, idx.valid, "cosine")
+    got = segmax.segmax4_scores(q, v, w)
+    torch.cuda.synchronize()
+    want = segmax.segmax4_scores_ref(q, v, w)
+    err = plane_check(f"segmax4 (embedded index) [{b},{d}] x [{n},{d}] bf16", got, want, 4)
+    (k1, k2), (p1, p2) = in_turns(lambda: segmax.segmax4_scores(q, v, w),
+                                  lambda: segmax.segmax4_scores_ref(q, v, w))
+    nbytes = n * d * 2 + n * 4 + b * d * 2 + 7 * b * (n // 32) * 4
+    lim = bound(nbytes, 2.0 * b * n * d)
+    log(f"[times] B1 on the embedded index's plane ({CARD}): kernel {(k1 + k2) / 2:.4f} ms, "
+        f"plain {(p1 + p2) / 2:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+    return {"shape": f"q [{b},{d}] x [{n},{d}] bf16", "max_abs_err": err,
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **lim}
+
+
 def main():
     global PARENT
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2637,6 +3064,16 @@ def main():
      graph_stats) = graph_path(
         SmallCorpus("clustered", clustered.x[:GRAPH_ROWS], clustered.queries))
     kernel_stats.update(graph_stats)
+    log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
+    del clustered
+    torch.cuda.empty_cache()
+    flat_b1, embedded_b1 = launches["segmax4"], embedded_path()
+    launches["segmax4"] = flat_b1 + embedded_b1["launches"]
+    kernel_stats["segmax4"]["launches_by_path"] = {"flat": flat_b1,
+                                                   "embedded": embedded_b1["launches"]}
+    kernel_stats["segmax4"]["embedded"] = embedded_b1
+    log(f"[embedded] segmax4 (B1) launches by path: flat {flat_b1}, "
+        f"embedded {embedded_b1['launches']}")
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     # a phase's stats never overwrite the identifying keys
     entries = [{**kernel_stats[name], "name": name, "route": "cuda", "source": src,

@@ -3,15 +3,17 @@
 PyTorch counterpart of ``grape_vector_db_tpu/db.py``. Owns the document store,
 the device index, the sparse index, and the unified query engine. Batch-first
 ingest (single add delegates to batch, lib.rs:309-356), fixed mutation order
-on delete (index before storage, lib.rs:380-390), and rebuild_index from
-stored documents (lib.rs:560-581).
+on delete (index before storage, lib.rs:380-390), rebuild_index from stored
+documents (lib.rs:560-581), and the document-oriented search with text
+fallback (lib.rs:459-540).
 
-Ported so far: every single-chip index kind (flat, binary, int8, pq, the
-IVF family ivf / ivf_int8 / ivf_int4, ivf_pq, the projected ivf_int8_proj /
-ivf_int4_proj, and graph) over the memory store, with ingest, search,
-delete, rebuild, optimize, tuning, stats and health. The sharded kinds, the
-file store, index snapshots, backups, listing, pipelined ingest and the
-enterprise wrappers are still to be ported (ROADMAP.md, queue A).
+Ported: every single-chip index kind (flat, binary, int8, pq, the IVF family
+ivf / ivf_int8 / ivf_int4, ivf_pq, the projected ivf_int8_proj /
+ivf_int4_proj, and graph) over the memory or the file store (``path``), with
+ingest (device-direct for text-only batches on the flat kinds, pipelined),
+search, listing, delete, rebuild, optimize, tuning, index snapshots,
+backups, the enterprise wrappers, stats and health. The sharded kinds are
+still to be ported (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -41,7 +43,13 @@ from grape_vector_db_tpu_torch.index import (BinaryDeviceIndex, FlatDeviceIndex,
                                              VectorIndex)
 from grape_vector_db_tpu_torch.services.embeddings import EmbeddingProvider, create_provider
 from grape_vector_db_tpu_torch.services.metrics import MetricsCollector
-from grape_vector_db_tpu_torch.storage import DocumentStore, MemoryDocumentStore
+from grape_vector_db_tpu_torch.storage import (
+    DocumentStore,
+    FileDocumentStore,
+    MemoryDocumentStore,
+)
+from grape_vector_db_tpu_torch.storage.file import compress, decompress
+from grape_vector_db_tpu_torch.storage.msgpack_codec import packb, unpackb
 from grape_vector_db_tpu_torch.types import (
     Document,
     DocumentRecord,
@@ -171,9 +179,6 @@ class VectorDatabase:
         if store is not None:
             self.store = store
         elif path:
-            # needs msgpack + zstandard; still to be ported (ROADMAP)
-            from grape_vector_db_tpu_torch.storage.file import FileDocumentStore
-
             self.store = FileDocumentStore(
                 os.path.join(path, "store"),
                 sync_writes=self.config.persistence.sync_writes,
@@ -183,7 +188,7 @@ class VectorDatabase:
         self.device = torch.device(device)
         self.index = build_index(self.config, device=self.device)
         self.sparse = SparseIndex(bm25=self.config.hybrid.bm25, config=self.config.sparse)
-        self.embedder = embedder or create_provider(self.config.embedding)
+        self.embedder = embedder or create_provider(self.config.embedding, device=self.device)
         if self.config.cache.enabled:
             from grape_vector_db_tpu_torch.engine.performance import CachingEmbedder
 
@@ -216,9 +221,19 @@ class VectorDatabase:
             max_workers=1, thread_name_prefix="gvdb-sparse")
         self._closed = False
         self._t0 = time.monotonic()
+        self.auth = None        # set by enable_enterprise()
+        self.resilience = None
         # Rebuild device state from the durable store on open.
         if self.store.count():
             self.rebuild_index()
+
+    @property
+    def write_lock(self) -> threading.RLock:
+        """The database's write lock (reentrant), exposed for callers that
+        need a compound check-then-act to be atomic against concurrent
+        writes (e.g. the cluster's upsert-if-newer reconcile: read the
+        stored revision, compare timestamps, conditionally upsert)."""
+        return self._lock
 
     # -- ingest (batch-first, lib.rs:309-356) -----------------------------------
 
@@ -234,16 +249,31 @@ class VectorDatabase:
             if not d.id:
                 raise InvalidArgumentError("document id must be non-empty")
         # Embed missing vectors in one provider batch. Providers with a
-        # batch-array path (mock) fill ndarray rows — no per-float boxing.
+        # batch-array path (mock, device-hash) fill ndarray rows — no
+        # per-float boxing on the write path (bulk ingest texts are mostly
+        # unique, so skipping the CachingEmbedder wrapper here loses nothing;
+        # the query path still goes through the cache).
         missing = [d for d in docs if d.vector is None]
         dim = self.config.vector_dimension
         embedded_all: Optional[np.ndarray] = None
+        device_ingest = None  # (chunks, drain) from embed_ingest
         if missing:
             texts = [f"{d.title or ''} {d.content}".strip() for d in missing]
             prov = self.embedder
+            ing_fn = getattr(prov, "embed_ingest", None) or getattr(
+                getattr(prov, "inner", None), "embed_ingest", None)
             arr_fn = getattr(prov, "embed_array", None) or getattr(
                 getattr(prov, "inner", None), "embed_array", None)
-            if arr_fn is not None:
+            if (ing_fn is not None
+                    and len(missing) == len(docs)
+                    and hasattr(self.index, "add_batch_device")
+                    and len({d.id for d in docs}) == len(docs)):
+                # text-only batch with unique ids on an index that takes
+                # device rows: the embedder's outputs stay on the device for
+                # the index write, and the store's f16 copy is drained after
+                # the write is issued, so the copy overlaps it
+                device_ingest = ing_fn(texts)
+            elif arr_fn is not None:
                 arr = arr_fn(texts)
                 for d, row in zip(missing, arr):
                     d.vector = row
@@ -257,7 +287,7 @@ class VectorDatabase:
             if embedded_all.shape[1] != dim:
                 raise InvalidArgumentError(
                     f"embedder dim {embedded_all.shape[1]} != {dim}")
-        else:
+        elif device_ingest is None:
             for d in docs:
                 if len(d.vector) != dim:
                     raise InvalidArgumentError(
@@ -274,11 +304,26 @@ class VectorDatabase:
             )
             err: Optional[BaseException] = None
             try:
-                records = [DocumentRecord.from_document(d) for d in docs]
-                self.store.batch_insert(records)
-                vecs = (embedded_all if embedded_all is not None
-                        else _stack_vectors(docs, dim))
-                self.index.add_batch(ids, vecs)
+                if device_ingest is not None:
+                    # device-direct order: the index write first (device
+                    # work, issued without waiting), then drain the f16 store
+                    # rows, whose copy overlaps the write
+                    chunks, drain = device_ingest
+                    self.index.add_batch_device(ids, chunks)
+                    arr = drain()
+                    if arr.shape[1] != dim:
+                        raise InvalidArgumentError(
+                            f"embedder dim {arr.shape[1]} != {dim}")
+                    for d, row in zip(docs, arr):
+                        d.vector = row
+                    records = [DocumentRecord.from_document(d) for d in docs]
+                    self.store.batch_insert(records)
+                else:
+                    records = [DocumentRecord.from_document(d) for d in docs]
+                    self.store.batch_insert(records)
+                    vecs = (embedded_all if embedded_all is not None
+                            else _stack_vectors(docs, dim))
+                    self.index.add_batch(ids, vecs)
                 self.filter_engine.index_documents(
                     (d.id, d.metadata) for d in docs)
             except BaseException as e:
@@ -294,7 +339,55 @@ class VectorDatabase:
             self.metrics.record_insert(len(docs))
             return ids
 
+    def add_documents_pipelined(self, docs: Sequence[Document],
+                                batch_size: int = 4096,
+                                inflight: int = 2) -> List[str]:
+        """Bulk ingest with overlapped batches.
+
+        ``batch_add_documents`` embeds (featurize, device step, the f16
+        store copy) before taking the write lock, so ``inflight``
+        concurrent calls pipeline legally: batch N's copy and drain overlap
+        batch N+1's host featurization while the lock serializes the
+        index/store/filter phase.
+
+        Semantics match sequential ``batch_add_documents`` per batch; ids
+        return in input order. Batches are independent — ingest order
+        BETWEEN overlapping batches is not defined, so duplicate ids across
+        batches should be avoided (within a batch they raise as before).
+
+        Reference: embeddings.rs:55-219 awaits its HTTP embedding call
+        before storage per batch — it cannot overlap.
+        """
+        if inflight < 1 or batch_size < 1:
+            raise InvalidArgumentError("inflight and batch_size must be >= 1")
+        batches = [docs[i:i + batch_size]
+                   for i in range(0, len(docs), batch_size)]
+        if not batches:
+            return []
+        if inflight == 1 or len(batches) == 1:
+            return [i for b in batches for i in self.batch_add_documents(b)]
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=inflight) as ex:
+            results = list(ex.map(self.batch_add_documents, batches))
+        return [i for ids in results for i in ids]
+
     # -- point ops ----------------------------------------------------------------
+
+    def list_documents(self, offset: int = 0, limit: int = 100,
+                       filter: Optional[Any] = None) -> List[Document]:
+        """Paginated listing, optionally filtered (the scroll/list surface the
+        reference exposes through its store pagination)."""
+        if filter is not None and not filter.is_empty():
+            allowed = sorted(self.filter_engine.execute_filter(filter))
+            ids = allowed[offset:offset + limit]
+            recs = [self.store.get(i) for i in ids]
+            return [r.to_document() for r in recs if r is not None]
+        return [r.to_document() for r in self.store.list_page(offset, limit)]
+
+    def count_documents(self, filter: Optional[Any] = None) -> int:
+        if filter is not None and not filter.is_empty():
+            return len(self.filter_engine.execute_filter(filter))
+        return self.store.count()
 
     def get_document(self, id_: str) -> Optional[Document]:
         rec = self.store.get(id_)
@@ -333,25 +426,41 @@ class VectorDatabase:
             req.dense_vector = self.embedder.generate_embedding(req.query)
         return self.engine.hybrid_search(req)
 
+    def search_documents(self, query: str, limit: int = 10) -> List[SearchResult]:
+        """Semantic search with text fallback (lib.rs:459-540): embed the query,
+        dense-search, and if nothing comes back fall back to the text scan."""
+        vec = self.embedder.generate_embedding(query)
+        results = self.engine.search(SearchRequest(query=query, vector=vec, limit=limit))
+        if not results:
+            results = self.engine.text_search(SearchRequest(query=query, limit=limit))
+        return results
+
     def vector_search_batch(self, vectors: np.ndarray, limit: int) -> List[List[ScoredPoint]]:
         return self.engine.vector_search_batch(vectors, limit)
 
     # -- maintenance ----------------------------------------------------------------
 
     def rebuild_index(self) -> int:
-        """Re-read all docs and rebuild device/sparse/filter state (lib.rs:560-581)."""
+        """Re-read all docs and rebuild device/sparse/filter state (lib.rs:560-581).
+        The BM25 index takes every document in one ``add_documents`` batch
+        (the ingest path's form; the reference adds them one at a time,
+        which was most of a reopen's time at 131,072 documents)."""
         with self._lock:
             self.index.clear()
             self.sparse.clear()
             self.filter_engine.clear()
             ids: List[str] = []
             vecs: List[List[float]] = []
+            all_ids: List[str] = []
+            texts: List[str] = []
             for rec in self.store.iter_records():
                 if rec.embedding is not None:
                     ids.append(rec.id)
                     vecs.append(rec.embedding)
-                self.sparse.add_document(rec.id, f"{rec.title} {rec.content}".strip())
+                all_ids.append(rec.id)
+                texts.append(f"{rec.title} {rec.content}".strip())
                 self.filter_engine.index_document(rec.id, rec.metadata)
+            self.sparse.add_documents(all_ids, texts)
             if ids:
                 arr = np.asarray(vecs, dtype=np.float32)
                 for i in range(0, len(ids), 8192):
@@ -498,10 +607,111 @@ class VectorDatabase:
                 "recall": round(chosen_recall, 4), "protocol": "held_out",
                 "sweep": table}
 
+    def flush(self) -> None:
+        self.store.flush()
+
     def close(self) -> None:
         self._closed = True
         self._sparse_pool.shutdown(wait=True)
         self.store.close()
+
+    # -- enterprise wrappers (lib.rs:717-787) ---------------------------------------------
+
+    def enable_enterprise(self, auth=None, resilience=None):
+        """Attach auth/RBAC + resilience guards. Returns the auth manager."""
+        from grape_vector_db_tpu_torch.services.enterprise import AuthenticationManager
+        from grape_vector_db_tpu_torch.services.resilience import ResilienceManager
+
+        self.auth = auth or AuthenticationManager()
+        self.resilience = resilience or ResilienceManager()
+        return self.auth
+
+    def _guarded(self, credential: str, perm, fn):
+        if self.auth is None:
+            raise StateError("enterprise features not enabled — call enable_enterprise()")
+        self.auth.authorize(credential, perm)
+        return self.resilience.execute(fn)
+
+    def search_with_auth(self, credential: str, req: SearchRequest):
+        from grape_vector_db_tpu_torch.services.enterprise import Permission
+
+        return self._guarded(credential, Permission.READ_DATA, lambda: self.search(req))
+
+    def add_documents_with_auth(self, credential: str, docs: Sequence[Document]):
+        from grape_vector_db_tpu_torch.services.enterprise import Permission
+
+        return self._guarded(
+            credential, Permission.WRITE_DATA, lambda: self.batch_add_documents(docs)
+        )
+
+    def delete_documents_with_auth(self, credential: str, ids: Sequence[str]):
+        from grape_vector_db_tpu_torch.services.enterprise import Permission
+
+        return self._guarded(
+            credential, Permission.WRITE_DATA, lambda: self.batch_delete_documents(ids)
+        )
+
+    # -- backup / stats / health ---------------------------------------------------------
+
+    def save_index(self, path: str) -> Dict[str, Any]:
+        """Index snapshot (query.rs:282-409): compressed ids+vectors+metadata,
+        dimension-validated on load; the JAX package's format (a zstd frame
+        of msgpack, vectors as raw f32 bytes) where zstandard imports, else
+        the zlib blob under its own magic (``storage/file.py``). Rebuilding
+        index structures from raw vectors is cheap, so snapshotting vectors
+        is the whole checkpoint."""
+        ids, vecs = self.index.get_all()
+        payload = packb({
+            "metadata": {
+                "dimension": self.config.vector_dimension,
+                "total_points": len(ids),
+                "created_at": int(time.time() * 1000),
+                "index_kind": self.index.get_stats().kind,
+                "metric": self.config.distance,
+            },
+            "ids": ids,
+            "vectors_f32": np.ascontiguousarray(vecs, dtype=np.float32).tobytes(),
+        })
+        blob = compress(payload, 3)
+        tmp = path + ".tmp"
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, path)
+        return {"points": len(ids), "bytes": len(blob)}
+
+    def load_index(self, path: str) -> Dict[str, Any]:
+        """Load an index snapshot of either route; rejects dimension
+        mismatches (query.rs:282-409)."""
+        with open(path, "rb") as f:
+            payload = unpackb(decompress(f.read()))
+        meta = payload["metadata"]
+        if meta["dimension"] != self.config.vector_dimension:
+            raise InvalidArgumentError(
+                f"index snapshot dimension {meta['dimension']} != "
+                f"configured {self.config.vector_dimension}"
+            )
+        ids = payload["ids"]
+        # a writable copy: torch.from_numpy takes no read-only buffer
+        vecs = np.frombuffer(bytearray(payload["vectors_f32"]), dtype=np.float32).reshape(
+            len(ids), meta["dimension"]
+        )
+        with self._lock:
+            self.index.clear()
+            for s in range(0, len(ids), 8192):
+                self.index.add_batch(ids[s:s + 8192], vecs[s:s + 8192])
+            self.index.optimize()
+            self.engine.invalidate_cache()
+        return {"points": len(ids), "created_at": meta["created_at"]}
+
+    def create_backup(self, backup_path: str) -> Dict[str, Any]:
+        return self.store.create_backup(backup_path)
+
+    def restore_backup(self, backup_path: str) -> Dict[str, Any]:
+        with self._lock:
+            info = self.store.restore_backup(backup_path)
+            self.rebuild_index()
+            return info
 
     # -- stats / health -------------------------------------------------------------
 

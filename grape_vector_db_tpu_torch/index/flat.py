@@ -162,6 +162,33 @@ class FlatDeviceIndex(VectorIndex):
             vecs_d = torch.from_numpy(vectors).to(self.device).to(self.storage_dtype)
             self._write(slots_d, vecs_d, _row_norms(vecs_d))
 
+    def add_batch_device(self, ids: Sequence[str],
+                         chunks: Sequence[Tuple[torch.Tensor, int]]) -> None:
+        """Write device-resident rows without a host round trip.
+
+        ``chunks`` is ``[(f32 [rows, dim] on this index's device, n_valid),
+        ...]`` with ``sum(n_valid) == len(ids)``, the shape
+        ``DeviceHashEmbedder.embed_ingest`` hands back. Rows past ``n_valid``
+        in a chunk are dropped: only the real rows are written. The caller
+        guarantees that ``ids`` are unique within the batch (the db's
+        text-only ingest path checks); ``add_batch`` stays the general entry.
+        """
+        if not len(ids):
+            return
+        total = sum(nv for _, nv in chunks)
+        if total != len(ids):
+            raise ValueError(f"chunks carry {total} rows for {len(ids)} ids")
+        for dev, _ in chunks:
+            if dev.ndim != 2 or dev.shape[1] != self._dim:
+                raise DimensionMismatchError(self._dim, dev.shape[-1])
+        with self._lock:
+            slots = torch.from_numpy(self._assign_slots(ids)).to(self.device)
+            off = 0
+            for dev, nv in chunks:
+                vecs_d = dev[:nv].to(self.device).to(self.storage_dtype)
+                self._write(slots[off:off + nv], vecs_d, _row_norms(vecs_d))
+                off += nv
+
     def _write(self, slots: torch.Tensor, vecs: torch.Tensor, norms: torch.Tensor) -> None:
         """Write one batch (slots int64, rows in the storage dtype, f32
         norms) into the device tensors (overridable)."""

@@ -114,16 +114,19 @@ class OpenAICompatibleProvider(EmbeddingProvider):
         raise NetworkError(f"embedding request failed after retries: {last_err}")
 
 
-def create_provider(config: EmbeddingConfig) -> EmbeddingProvider:
+def create_provider(config: EmbeddingConfig, device="cuda") -> EmbeddingProvider:
     """Factory (embeddings.rs:269-286): openai/azure/nvidia/huggingface/ollama all
     speak the OpenAI-compatible shape; 'mock' is the offline fixture; 'device'
-    is the TPU-native local embedder (signed feature hashing + MXU projection
-    — similar texts get similar vectors, no network)."""
+    is the local embedder (signed feature hashing + a projection on
+    ``device`` — similar texts get similar vectors, no network)."""
     if config.provider == "mock":
         return MockEmbeddingProvider(config.dimension)
     if config.provider == "device":
-        raise NotImplementedError(
-            "embedding provider 'device' is not ported to the PyTorch package "
-            "yet: services/device_embedder.py waits for ROADMAP A.12; use "
-            "'mock' or an OpenAI-compatible provider")
+        from grape_vector_db_tpu_torch.services.device_embedder import DeviceHashEmbedder
+
+        return DeviceHashEmbedder(
+            dim=config.dimension, buckets=config.hash_buckets,
+            seed=config.hash_seed, max_features=config.hash_max_features,
+            device=device,
+        )
     return OpenAICompatibleProvider(config)

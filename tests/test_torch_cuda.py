@@ -1019,3 +1019,53 @@ def test_graph_index_on_cuda_matches_cpu(cuda):
     got = card.search_batch(q, 10)
     assert tgat.LAUNCHES["gather_dots"] == 1 + card.search_iters
     assert_hits_match(got, cpu.search_batch(q, 10), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,buckets,chunk", [(768, 32768, 1024), (128, 4096, 7)])
+def test_device_embedder_on_cuda_matches_cpu(cuda, dim, buckets, chunk):
+    """The embedder's device step on the card against the same step on the
+    CPU: the same projection bit for bit, f32 rows within 1e-5 (the same bf16
+    products summed in another order), f16 rows within one f16 ulp; the f16
+    copy reaches the host through pinned memory."""
+    from grape_vector_db_tpu_torch.services.device_embedder import DeviceHashEmbedder
+
+    texts = [f"theme {i % 7} document {i} about replication and consensus {i * 31 % 97}"
+             for i in range(40)] + ["", "naïve café", "a" * 300]
+    card = DeviceHashEmbedder(dim=dim, buckets=buckets, chunk=chunk, device=cuda)
+    cpu = DeviceHashEmbedder(dim=dim, buckets=buckets, chunk=chunk, device="cpu")
+    assert torch.equal(card._projection().cpu().view(torch.int16),
+                       cpu._projection().view(torch.int16))
+    c_chunks, c_drain = card.embed_ingest(texts)
+    h_chunks, h_drain = cpu.embed_ingest(texts)
+    for (c, nv), (h, hv) in zip(c_chunks, h_chunks):
+        assert c.is_cuda and c.dtype == torch.float32 and nv == hv
+        np.testing.assert_allclose(c[:nv].cpu().numpy(), h[:hv].numpy(), rtol=0, atol=1e-5)
+    a, b = c_drain(), h_drain()
+    big = np.maximum(np.abs(a), np.abs(b)).astype(np.float16)
+    assert (np.abs(a.astype(np.float32) - b.astype(np.float32))
+            <= np.spacing(big).astype(np.float32)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage_dtype", ["bfloat16", "float32"])
+def test_add_batch_device_matches_add_batch_on_cuda(cuda, storage_dtype):
+    """Device rows written by add_batch_device (two chunks with padding rows
+    past n_valid) land as add_batch writes the same rows: equal planes,
+    norms, validity and hits."""
+    g = np.random.default_rng(5)
+    rows = g.standard_normal((300, 96)).astype(np.float32)
+    ids = [f"r{i}" for i in range(300)]
+    host = FlatIndex(96, storage_dtype=storage_dtype, initial_capacity=128, device=cuda)
+    host.add_batch(ids, rows)
+    dev = FlatIndex(96, storage_dtype=storage_dtype, initial_capacity=128, device=cuda)
+    pad = torch.full((20, 96), float("nan"), device=cuda)
+    chunks = [(torch.cat([torch.from_numpy(rows[:200]).to(cuda), pad]), 200),
+              (torch.cat([torch.from_numpy(rows[200:]).to(cuda), pad]), 100)]
+    dev.add_batch_device(ids, chunks)
+    torch.cuda.synchronize()
+    assert dev.capacity == host.capacity and len(dev) == 300
+    assert torch.equal(dev.vectors, host.vectors)
+    assert torch.equal(dev.norms, host.norms) and torch.equal(dev.valid, host.valid)
+    q = rows[:16] + 0.1 * g.standard_normal((16, 96)).astype(np.float32)
+    assert dev.search_batch(q, 10) == host.search_batch(q, 10)

@@ -25,6 +25,8 @@ COPIES = [
     "index/base.py", "storage/store.py", "engine/__init__.py", "engine/cache.py",
     "engine/filtering.py", "engine/sparse.py", "engine/hybrid.py",
     "engine/performance.py", "engine/planner.py", "services/__init__.py",
+    "services/concurrent.py", "services/enterprise.py", "services/resilience.py",
+    "embedded.py",
 ]
 # modules copied with one function changed
 CHANGED = [("services/metrics.py", "record_hbm"),
