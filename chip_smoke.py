@@ -55,6 +55,21 @@ the port's paths through ``VectorDatabase`` on the card:
   through the pairs route, each route checked at all three shapes with the
   ids of a real build round and a real search and timed in turns with the
   other (the pairs route is the parent tree's kernel);
+- the single-node server over the flat phase's database (handed on, not
+  ingested again): the port's gRPC server (``build_grpc_server``) and REST
+  server on 127.0.0.1, unfiltered searches from 32 client threads through
+  the micro-batcher at k = 10 (B1) and k = 3 (B2), filtered and payload
+  searches that skip it, REST searches, upserts over both protocols with
+  searches in flight (the index grows to 2,097,152 rows), deletes, lookups,
+  counts, health and metrics, each answer against the oracle over the
+  index's rows; one batch under ``utils.tracing.profile_to``, whose Chrome
+  trace must name ``segmax_max_kernel``; then B1 and B2 against their plain
+  versions on the served plane at the batcher's largest batch (64);
+- the CLI: ``python3 -m grape_vector_db_tpu_torch.cli serve`` as a
+  subprocess on the default device, 65,536 x 768 rows over gRPC, searches
+  against the numpy oracle, its /metrics' device memory, an interrupt; then
+  every other subcommand in process at its defaults (their JSON keys held
+  to the JAX CLI's) and ``tune`` on the served data directory;
 - the embedded deployment at the default configuration: ``EmbeddedVectorDB``
   over a file store in a temporary directory with the device hash embedder
   (``embedding.provider = "device"``: 32,768 buckets, the JAX package's
@@ -81,9 +96,10 @@ parent); without it those comparisons are skipped and logged as such.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Every phase raises on failure. Earlier lines report each phase;
 the line before the last is a JSON object with one entry per kernel (B1's
-entry carries its launches on the flat and the embedded paths, split under
-"launches_by_path", and its check and times on the embedded index's plane
-under "embedded"; B4/B5's entries carry their launches on the IVF path; the projected path's own run
+entry carries its launches on the flat, server and embedded paths, split
+under "launches_by_path", its check and times on the served plane under
+"server" and on the embedded index's plane under "embedded"; B2's its
+launches on the flat and server paths and its served-plane figures; B4/B5's entries carry their launches on the IVF path; the projected path's own run
 at D = 384 sits under their "d384" key; B4/B5's grouping pass has its own
 entry, "ivf_group", whose launches are both paths' with the split under
 "launches_by_path"; B11 has one entry for the graph
@@ -1175,8 +1191,7 @@ def flat_path():
         f"median {med * 1e3:.3f} ms of 20 ({BATCH / med:.0f} queries/s); "
         f"ingest {N_ROWS / ingest_s:.0f} docs/s")
     flat_breakdown(db.index, queries, med)
-    db.close()
-    return {name: launches[name] for name in ("segmax4", "segmax2")}
+    return {name: launches[name] for name in ("segmax4", "segmax2")}, db
 
 
 def flat_breakdown(idx, queries, e2e_s):
@@ -2660,16 +2675,21 @@ def f16_ulps(a: np.ndarray, b: np.ndarray) -> float:
                   / np.spacing(big).astype(np.float32)).max())
 
 
-def index_oracle(idx, queries: np.ndarray, deep=64):
-    """Cosine top-``deep`` over the index's own rows (``get_all``: the stored
-    bf16 values as f32), an f32 product on the card with TF32 off (not the
-    port's kernels): (values, doc numbers) for check_hits."""
-    ids, vecs = idx.get_all()
-    x = torch.from_numpy(vecs).to(DEV)
-    q = torch.nn.functional.normalize(torch.from_numpy(queries).to(DEV), dim=1)
+def index_oracle(idx, queries: np.ndarray, deep=64, keep=None):
+    """Cosine top-``deep`` over the index's live rows (the stored bf16
+    values as f32, gathered on the card), an f32 product on the card with
+    TF32 off (not the port's kernels), among the rows whose document
+    numbers ``keep`` passes where it is given: (values, doc numbers) for
+    check_hits."""
+    items = list(idx._id_to_slot.items())
+    nums = np.array([int(i[3:]) for i, _ in items])
+    x = idx.vectors[torch.tensor([s for _, s in items], device=idx.vectors.device)].float()
+    q = torch.nn.functional.normalize(torch.from_numpy(queries).to(x.device), dim=1)
     s = (q @ x.T) / torch.linalg.vector_norm(x, dim=1).clamp(min=1e-12)[None, :]
+    del x
+    if keep is not None:
+        s.masked_fill_(~torch.from_numpy(keep(nums)).to(s.device), float("-inf"))
     vals, rows = torch.topk(s, deep, dim=1)
-    nums = np.array([int(i[3:]) for i in ids])
     return vals.cpu().numpy(), nums[rows.cpu().numpy()]
 
 
@@ -2707,7 +2727,7 @@ def embedded_path():
     the index's plane, filters, the enterprise wrappers,
     index snapshot, backup and restore, close and reopen at the default
     startup timeout. Returns B1's entry for this path: the batch call's
-    launches and ``embedded_b1_check``'s figures."""
+    launches and ``index_plane_check``'s figures."""
     import tempfile
     import threading
 
@@ -2882,7 +2902,7 @@ def embedded_path():
     counts = read_counts()
     require(counts["segmax4"] > 0, f"the B={EMBED_BATCH} batch never launched segmax4: {counts}")
     check_batch(f"embedded batch B={EMBED_BATCH}", batch, db.index, queries)
-    b1 = embedded_b1_check(db.index, queries)
+    b1 = index_plane_check("embedded", "segmax4", db.index, queries)
     b1["launches"] = counts["segmax4"]
     med = timed(lambda: db.vector_search_batch(queries, 10))
     log(f"[times] embedded vector_search_batch B={EMBED_BATCH} k=10 at {corpus.n} documents: "
@@ -2972,31 +2992,507 @@ def embedded_path():
     return b1
 
 
-def embedded_b1_check(idx, queries):
-    """B1 against its plain version on the embedded index's own plane: the
-    B = 256 queries prepared as the flat path prepares them, the index's
-    rows (its whole capacity) and their cosine weight plane. Also times
-    both in turns. Launches here are not counted as the path's."""
+def index_plane_check(label, name, idx, queries):
+    """B1 (``segmax4``) or B2 (``segmax2``) against its plain version on an
+    index's own plane: the queries prepared as the flat path prepares them,
+    the index's rows (its whole capacity) and their cosine weight plane.
+    Also times both in turns. Launches here are not counted as a path's."""
     from grape_vector_db_tpu_torch.ops import segmax
     from grape_vector_db_tpu_torch.ops.distance import prepare_queries
 
+    topj = 4 if name == "segmax4" else 2
+    kern = segmax.segmax4_scores if topj == 4 else segmax.segmax2_scores
+    plain = segmax.segmax4_scores_ref if topj == 4 else segmax.segmax2_scores_ref
     v = idx.vectors
     n, d = v.shape
     b = queries.shape[0]
     q = prepare_queries(torch.from_numpy(queries).to(v.device), "cosine")
     w = segmax.make_weight_plane(idx.norms, idx.valid, "cosine")
-    got = segmax.segmax4_scores(q, v, w)
+    got = kern(q, v, w)
     torch.cuda.synchronize()
-    want = segmax.segmax4_scores_ref(q, v, w)
-    err = plane_check(f"segmax4 (embedded index) [{b},{d}] x [{n},{d}] bf16", got, want, 4)
-    (k1, k2), (p1, p2) = in_turns(lambda: segmax.segmax4_scores(q, v, w),
-                                  lambda: segmax.segmax4_scores_ref(q, v, w))
-    nbytes = n * d * 2 + n * 4 + b * d * 2 + 7 * b * (n // 32) * 4
+    want = plain(q, v, w)
+    if topj == 2:   # (m1, i1, m2) -> values first
+        got, want = (got[0], got[2], got[1]), (want[0], want[2], want[1])
+    err = plane_check(f"{name} ({label} index) [{b},{d}] x [{n},{d}] bf16", got, want, topj)
+    (k1, k2), (p1, p2) = in_turns(lambda: kern(q, v, w), lambda: plain(q, v, w))
+    nbytes = n * d * 2 + n * 4 + b * d * 2 + (2 * topj - 1) * b * (n // 32) * 4
     lim = bound(nbytes, 2.0 * b * n * d)
-    log(f"[times] B1 on the embedded index's plane ({CARD}): kernel {(k1 + k2) / 2:.4f} ms, "
-        f"plain {(p1 + p2) / 2:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+    log(f"[times] {name} on the {label} index's plane ({CARD}): kernel {(k1 + k2) / 2:.4f} ms "
+        f"({k1:.4f} / {k2:.4f}), plain {(p1 + p2) / 2:.4f} ms, bound {lim['bound_ms']:.4f} ms "
+        f"({lim['bound_by']})")
     return {"shape": f"q [{b},{d}] x [{n},{d}] bf16", "max_abs_err": err,
             "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **lim}
+
+
+# -- the single-node server ---------------------------------------------------------
+
+SERVER_BUDGET_S = 150.0   # server_path and cli_path together
+SERVER_THREADS = 32       # client threads, as many RPCs in flight
+SERVER_QUERIES = 320      # distinct query vectors: half near stored rows, half anywhere
+NEW_ROWS = 8192           # rows upserted over gRPC (16 RPCs of 512)
+REST_ROWS = 1024          # rows posted over REST (4 calls of 256)
+SERVED_DELETES = 1024
+CLI_ROWS = 1 << 16        # rows the serve subprocess takes over gRPC (64 RPCs of 1,024)
+# the keys each CLI subcommand prints, as the JAX package's CLI prints them
+# (tests/test_torch_bench_cli.py holds the two CLIs to one set)
+CLI_KEYS = {
+    "benchmark": {"insert_docs", "insert_s", "insert_qps", "searches", "avg_ms", "p95_ms",
+                  "search_qps"},
+    "performance-test": {"batch_insert_s", "text_searches", "text_search_avg_ms"},
+    "simple-performance-test": {"total_queries", "avg_ms", "p95_ms", "p99_ms", "qps"},
+    "concurrent-insert-test": {"batch_50_s", "sequential_50_s", "speedup", "target_met"},
+    "storage-analysis": {"with_vectors_s", "without_vectors_s", "with_vectors_bytes",
+                         "without_vectors_bytes"},
+    "fusion-benchmark": {"name", "precision@10", "recall@10", "ndcg@10", "p95_ms", "qps"},
+}
+
+
+def in_group3(nums: np.ndarray) -> np.ndarray:
+    """The rows the server phase's filter ``g = 3`` keeps: group 3 of the
+    flat corpus, whose new rows carry the same groups (number mod 10)."""
+    return nums % 10 == 3
+
+
+class RestHit:
+    """A REST search result as check_hits reads one."""
+
+    def __init__(self, r):
+        self.id, self.score, self.payload = r["id"], r["score"], r.get("payload")
+
+
+def rest_call(base, method, path, body=None):
+    """(status, decoded JSON or text) of one REST request."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            raw = resp.read()
+            kind = resp.headers.get("Content-Type", "")
+            return resp.status, json.loads(raw) if "json" in kind else raw.decode()
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def metric_value(text: str, name: str) -> float:
+    """A gauge's value from Prometheus text, or -1 where it is absent."""
+    for line in text.splitlines():
+        if line.startswith(f"grape_vector_db_{name} "):
+            return float(line.split()[-1])
+    return -1.0
+
+
+def on_threads(fn, items, threads=SERVER_THREADS):
+    """fn(item) for every item from ``threads`` threads: (results, per-call
+    seconds, wall seconds)."""
+    def timed_call(item):
+        t0 = time.perf_counter()
+        out = fn(item)
+        return out, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        done = list(pool.map(timed_call, items))
+    return [r for r, _ in done], [t for _, t in done], time.perf_counter() - t0
+
+
+def pct_ms(secs):
+    p50, p99 = np.percentile(np.array(secs) * 1e3, [50, 99])
+    return f"p50 {p50:.3f} ms, p99 {p99:.3f} ms"
+
+
+def server_path(db):
+    """The single-node server over the flat phase's database (1,048,576 x 768
+    bf16, cosine, 1,000 deleted): ``build_grpc_server`` and ``RestServer``
+    on 127.0.0.1, port 0. Unfiltered gRPC traffic from 32 threads through the
+    micro-batcher at k = 10 (B1) and k = 3 (B2); filtered and payload RPCs,
+    which skip it; REST searches; upserts over both protocols (with searches
+    in flight), each new row's own vector back first, deletes, lookups,
+    counts, health and metrics; one batch under ``profile_to``. Every answer
+    against the oracle over the index's rows. The host time of each
+    ``vector_search_batch`` call the batcher makes under that load is held
+    beside the same call's time with no traffic. Then B1 and B2 against
+    their plain versions on the served plane at the batcher's largest batch.
+    Returns B1's and B2's entries for this path."""
+    import tempfile
+
+    from grape_vector_db_tpu_torch.ops.distance import scored_topk
+    from grape_vector_db_tpu_torch.server import grpc_server as gsrv
+    from grape_vector_db_tpu_torch.server.proto import vector_db_pb2 as pb
+    from grape_vector_db_tpu_torch.server.rest import RestServer
+    from grape_vector_db_tpu_torch.utils.tracing import profile_to, trace_span
+
+    t_phase = time.perf_counter()
+    idx = db.index
+    rng = np.random.default_rng(SEED + 20)
+    deleted = [n for n in range(N_ROWS) if f"doc{n}" not in idx._id_to_slot]
+    alive = np.setdiff1d(np.arange(N_ROWS), deleted)
+    near = rng.choice(alive, SERVER_QUERIES // 2, replace=False)
+    queries = np.concatenate([
+        np.stack([np.asarray(db.get_document(f"doc{r}").vector, np.float32) for r in near])
+        + 0.5 * rng.standard_normal((SERVER_QUERIES // 2, DIM), dtype=np.float32),
+        rng.standard_normal((SERVER_QUERIES // 2, DIM), dtype=np.float32)])
+    qlists = queries.astype(float).tolist()
+    o_vals, o_ids = index_oracle(idx, queries)
+    f_vals, f_ids = index_oracle(idx, queries, keep=in_group3)
+
+    calls = []   # host seconds of each engine.vector_search_batch call
+    search_batch = db.engine.vector_search_batch
+
+    def timed_batch(q, k):
+        t0 = time.perf_counter()
+        try:
+            return search_batch(q, k)
+        finally:
+            calls.append(time.perf_counter() - t0)
+
+    # the servicer hands this instance attribute to its batcher when it is built
+    db.engine.vector_search_batch = timed_batch
+    server, port, servicer = gsrv.build_grpc_server(db, port=0, max_workers=SERVER_THREADS)
+    server.start()
+    rest = RestServer(db, host="127.0.0.1", port=0)
+    host, rport = rest.start()
+    base = f"http://{host}:{rport}"
+    client = gsrv.VectorDbClient(f"127.0.0.1:{port}", timeout_s=120.0)
+    batcher = servicer.batcher
+    log(f"[server] gRPC :{port} and REST {host}:{rport} over the flat phase's database on "
+        f"{DEV} ({CARD}): {len(idx)} rows at capacity {idx.capacity}; micro-batcher "
+        f"max_batch {batcher.max_batch}, wait {batcher.max_wait_s * 1e3:g} ms, pad_to "
+        f"{batcher.pad_to}; grpc {__import__('grpc').__version__}, protobuf "
+        f"{__import__('google.protobuf').protobuf.__version__}")
+
+    def search(args):
+        j, k = args
+        r = client.call("SearchVectors", pb.SearchVectorsRequest(
+            query=pb.Vector(values=qlists[j]), limit=k))
+        require(not r.error, f"SearchVectors: {r.error}")
+        return r
+
+    try:
+        reset_counts()
+        # 1. unfiltered traffic through the micro-batcher: k = 10 (B1), k = 3 (B2)
+        hits10 = []
+        for k, n_rpc in ((10, 640), (3, 320)):
+            b0, q0, c0 = batcher.batches_run, batcher.queries_run, len(calls)
+            jobs = [(j % SERVER_QUERIES, k) for j in range(n_rpc)]
+            res, secs, wall = on_threads(search, jobs)
+            for (j, _), r in zip(jobs, res):
+                check_hits(f"gRPC k={k} q{j}", [r.results], o_vals[j:j + 1], o_ids[j:j + 1], k)
+            hits10 += [h.id for r in res for h in r.results] if k == 10 else []
+            nb = batcher.batches_run - b0
+            log(f"[times] server gRPC SearchVectors k={k}, {SERVER_THREADS} threads, {n_rpc} "
+                f"RPCs: {pct_ms(secs)}, {n_rpc / wall:.0f} RPC/s; {nb} batches, avg_batch "
+                f"{(batcher.queries_run - q0) / max(nb, 1):.2f}; the batcher's "
+                f"vector_search_batch calls {pct_ms(calls[c0:])}; all agree with the oracle")
+        log(f"[server] batcher.stats() {batcher.stats()}")
+        # the RPCs' launches so far; the timings below launch B1 outside them
+        served = read_counts()
+        idle = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            search_batch(rng.standard_normal((16, DIM), dtype=np.float32), 10)
+            idle.append(time.perf_counter() - t0)
+        qt = torch.from_numpy(queries[:batcher.max_batch]).to(DEV)
+        span = cuda_ms(lambda: scored_topk(qt, idx.vectors, idx.norms, idx.valid, 10,
+                                           metric=idx.metric,
+                                           chunk=min(65536, idx.capacity),
+                                           mode=idx.search_mode), 20)
+        reset_counts()
+        log(f"[times] server vector_search_batch with no traffic, B=16 k=10, 20 calls: "
+            f"{pct_ms(idle)}")
+        log(f"[times] server device span of one batch B={batcher.max_batch} k=10 "
+            f"(scored_topk: B1 and phase 2; CUDA events, mean of 20): {span:.3f} ms")
+
+        # 2. filtered and payload RPCs, which skip the batcher. The engine
+        # caches results by query vector and filter, so each timed call from
+        # here on sends a vector that no call before it sent with its filter
+        b0 = batcher.batches_run
+
+        def filtered(j):
+            return client.search(qlists[j], limit=10, filter_sql="g = 3")
+
+        res, secs, _ = on_threads(filtered, range(64))
+        for j, r in enumerate(res):
+            require(not r.error and all(h.payload["g"] == "3" for h in r.results),
+                    f"filtered RPC q{j} broke its filter: {r.error}")
+            check_hits(f"gRPC filtered q{j}", [r.results], f_vals[j:j + 1], f_ids[j:j + 1], 10)
+        log(f"[times] server gRPC filtered (g = 3) SearchVectors, 64 RPCs: {pct_ms(secs)}")
+        res, secs, _ = on_threads(lambda j: client.search(qlists[j], limit=10), range(64, 96))
+        for j, r in zip(range(64, 96), res):
+            check_hits(f"gRPC with_payload q{j}", [r.results], o_vals[j:j + 1], o_ids[j:j + 1],
+                       10)
+            require(all(h.payload["g"] == str(int(h.id[3:]) % 10) for h in r.results),
+                    f"with_payload q{j}: a payload differs from its row's")
+        require(batcher.batches_run == b0, "a filtered or payload RPC went through the batcher")
+        log(f"[times] server gRPC with_payload SearchVectors, 32 RPCs: {pct_ms(secs)}; "
+            "filters and payloads obeyed, none through the batcher")
+
+        # 3. REST: sequential searches, then filtered ones
+        secs = []
+        for j in range(96, 296):
+            t0 = time.perf_counter()
+            code, out = rest_call(base, "POST", "/api/v1/search",
+                                  {"mode": "vector", "vector": qlists[j], "limit": 10})
+            secs.append(time.perf_counter() - t0)
+            require(code == 200, f"REST search: {code} {out}")
+            check_hits(f"REST q{j}", [[RestHit(r) for r in out["results"]]], o_vals[j:j + 1],
+                       o_ids[j:j + 1], 10)
+        log(f"[times] server REST POST /api/v1/search k=10, 200 sequential: {pct_ms(secs)}")
+        secs = []
+        for j in range(64, 96):
+            t0 = time.perf_counter()
+            code, out = rest_call(base, "POST", "/api/v1/search",
+                                  {"vector": qlists[j], "limit": 10, "filter_sql": "g = 3"})
+            secs.append(time.perf_counter() - t0)
+            hits = [RestHit(r) for r in out["results"]]
+            require(code == 200 and all(h.payload["g"] == 3 for h in hits),
+                    f"REST filtered q{j} broke its filter")
+            check_hits(f"REST filtered q{j}", [hits], f_vals[j:j + 1], f_ids[j:j + 1], 10)
+        log(f"[times] server REST filtered (g = 3) search, 32 sequential: {pct_ms(secs)}; "
+            "all obey the filter and agree with the oracle")
+
+        # 4. writes: upserts over both protocols with searches in flight
+        new = rng.standard_normal((NEW_ROWS + REST_ROWS, DIM), dtype=np.float32)
+        first = N_ROWS + 1   # past every number the flat corpus used
+
+        def upsert(c):
+            lo = c * 512
+            pts = [pb.Point(id=f"doc{first + i}", vector=pb.Vector(values=new[i]),
+                            payload={"g": str((first + i) % 10)}) for i in range(lo, lo + 512)]
+            r = client.call("UpsertVector", pb.UpsertVectorRequest(points=pts))
+            require(r.upserted == 512 and not r.error, f"UpsertVector: {r.error}")
+
+        with concurrent.futures.ThreadPoolExecutor(8) as readers:
+            during = [readers.submit(search, (j, 10)) for j in range(256)]
+            _, secs, wall = on_threads(upsert, range(NEW_ROWS // 512), threads=4)
+            for f in during:
+                r = f.result()
+                sc = [h.score for h in r.results]
+                require(len(sc) == 10 and np.isfinite(sc).all() and sc == sorted(sc, reverse=True),
+                        "a search during the upserts returned a malformed answer")
+        log(f"[times] server gRPC UpsertVector: {NEW_ROWS} rows in {NEW_ROWS // 512} RPCs of 512 "
+            f"from 4 threads, 256 searches in flight: {wall:.2f} s ({NEW_ROWS / wall:.0f} "
+            f"rows/s), per RPC {pct_ms(secs)}")
+        t0 = time.perf_counter()
+        per = REST_ROWS // 4
+        for lo in range(NEW_ROWS, NEW_ROWS + REST_ROWS, per):
+            code, out = rest_call(base, "POST", "/api/v1/vectors", {"points": [
+                {"id": f"doc{first + i}", "vector": new[i].tolist(),
+                 "metadata": {"g": (first + i) % 10}} for i in range(lo, lo + per)]})
+            require(code == 200 and out["upserted"] == per, f"REST upsert: {code} {out}")
+        rest_s = time.perf_counter() - t0
+        log(f"[times] server REST POST /api/v1/vectors: {REST_ROWS} rows in 4 calls of {per}: "
+            f"{rest_s:.2f} s ({REST_ROWS / rest_s:.0f} rows/s); capacity now {idx.capacity}")
+        own = new.astype(float).tolist()
+
+        def own_first(i):
+            r = client.call("SearchVectors", pb.SearchVectorsRequest(
+                query=pb.Vector(values=own[i]), limit=10))
+            return r.results[0].id if r.results else None, r.results[0].score
+
+        res, secs, wall = on_threads(own_first, range(NEW_ROWS + REST_ROWS))
+        for i, (top, score) in enumerate(res):
+            require(top == f"doc{first + i}" and score > 0.99,
+                    f"new row doc{first + i}: its own vector returned {top} ({score}) first")
+        log(f"[server] each of the {NEW_ROWS + REST_ROWS} new rows' own vectors returns it "
+            f"first ({len(res)} RPCs, {pct_ms(secs)}, {len(res) / wall:.0f} RPC/s)")
+        for i in [*range(0, NEW_ROWS, NEW_ROWS // 8), *range(NEW_ROWS, NEW_ROWS + REST_ROWS,
+                                                               REST_ROWS // 8)]:
+            g = client.call("GetVector", pb.GetVectorRequest(id=f"doc{first + i}"))
+            code, out = rest_call(base, "GET", f"/api/v1/vectors/doc{first + i}")
+            require(g.found and code == 200, f"doc{first + i} not found ({code})")
+            require(np.array_equal(np.asarray(g.point.vector.values, np.float32), new[i])
+                    and np.array_equal(np.asarray(out["vector"], np.float32), new[i]),
+                    f"doc{first + i}: GetVector or GET /api/v1/vectors gave another vector")
+        # rows answered in step 1: no write since has removed any of them
+        doomed = list(dict.fromkeys(hits10))[:SERVED_DELETES]
+        require(len(doomed) == SERVED_DELETES, f"only {len(doomed)} distinct hits to delete")
+        r = client.call("DeleteVector", pb.DeleteVectorRequest(ids=doomed))
+        require(r.deleted == SERVED_DELETES and not r.error, f"DeleteVector: {r.deleted} {r.error}")
+        want_n = N_ROWS - len(deleted) + NEW_ROWS + REST_ROWS - SERVED_DELETES
+        st = client.call("GetStats", pb.GetStatsRequest())
+        require(st.document_count == want_n and st.index_size == want_n,
+                f"GetStats {st.document_count} / {st.index_size}, wanted {want_n}")
+        a_vals, a_ids = index_oracle(idx, queries)
+        af_vals, af_ids = index_oracle(idx, queries, keep=in_group3)
+        gone = frozenset(int(i[3:]) for i in doomed)
+        res, _, _ = on_threads(search, [(j, 10) for j in range(SERVER_QUERIES)])
+        for j, r in enumerate(res):
+            check_hits(f"gRPC after writes q{j}", [r.results], a_vals[j:j + 1], a_ids[j:j + 1], 10,
+                       exclude=gone)
+        for j in range(16):
+            r = client.search(qlists[j], limit=10, filter_sql="g = 3")
+            check_hits(f"gRPC filtered after writes q{j}", [r.results], af_vals[j:j + 1],
+                       af_ids[j:j + 1], 10, exclude=gone)
+        log(f"[server] after {NEW_ROWS + REST_ROWS} upserts and {SERVED_DELETES} deletes: GetStats "
+            f"counts {want_n} exactly; GetVector and GET /api/v1/vectors give back the vectors "
+            f"sent; {SERVER_QUERIES} unfiltered and 16 filtered answers agree with the oracle "
+            "and hold no deleted id")
+
+        # 5. health and metrics
+        code, health = rest_call(base, "GET", "/health")
+        require(code == 200 and health["status"] == "healthy", f"/health: {code} {health}")
+        g_hbm = metric_value(client.call("GetMetrics", pb.GetMetricsRequest()).prometheus_text,
+                             "hbm_bytes_in_use")
+        code, text = rest_call(base, "GET", "/metrics")
+        r_hbm = metric_value(text, "hbm_bytes_in_use")
+        require(g_hbm > 0 and r_hbm > 0, f"hbm_bytes_in_use {g_hbm} / {r_hbm}")
+        log(f"[server] /health 200 ({health['document_count']} documents, index consistent "
+            f"{health['index_consistent']}); hbm_bytes_in_use {g_hbm:.0f} (GetMetrics), "
+            f"{r_hbm:.0f} (/metrics)")
+
+        # 6. one batch of gRPC searches under the profiler
+        with tempfile.TemporaryDirectory(prefix="gvdb_trace_") as tdir:
+            with profile_to(tdir):
+                with trace_span("server.grpc_batch"):
+                    on_threads(search, [(j, 10) for j in range(64)])
+            (path,) = [os.path.join(tdir, f) for f in os.listdir(tdir)]
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        kern = sorted(n for n in names if "segmax_max_kernel" in n)
+        require("server.grpc_batch" in names and kern,
+                f"the trace lacks the span or segmax_max_kernel ({len(names)} names)")
+        span_us = max(e.get("dur", 0) for e in events if e.get("name") == "server.grpc_batch")
+        busy_us = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel")
+        log(f"[server] profile_to over 64 RPCs: {len(events)} trace events, the span "
+            f"server.grpc_batch and {kern[0][:60]} named in the Chrome trace")
+        log(f"[times] server traced batch of 64 RPCs: span {span_us / 1e3:.3f} ms, kernels "
+            f"{busy_us / 1e3:.3f} ms on the device (busy share {busy_us / span_us:.3f})")
+        torch.cuda.synchronize()
+        counts = {name: n + served.get(name, 0) for name, n in read_counts().items()}
+    finally:
+        client.close()
+        rest.stop()
+        server.stop(grace=1)
+        del db.engine.vector_search_batch
+    for name in ("segmax4", "segmax2"):
+        require(counts[name] > 0, f"the server path never launched {name}: {counts}")
+    log(f"[server] kernel launches on the server path: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+
+    # 7. B1 and B2 at the server's largest batch, on the served plane
+    out = {}
+    for name in ("segmax4", "segmax2"):
+        out[name] = index_plane_check("served", name, idx, queries[:batcher.max_batch])
+        out[name]["launches"] = counts[name]
+    batcher.close()
+    db.close()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[time] server phase {phase_s:.1f} s")
+    return out, phase_s
+
+
+def cli_path():
+    """The CLI on the card: ``python3 -m grape_vector_db_tpu_torch.cli serve``
+    as a subprocess at the default device and configuration, fed over gRPC
+    and searched against the numpy oracle, its /metrics read, stopped by an
+    interrupt; then every other subcommand in process at its defaults, and
+    ``tune`` on the served data directory. Returns the phase's seconds."""
+    import contextlib
+    import io
+    import queue
+    import signal
+    import tempfile
+    import threading
+
+    from grape_vector_db_tpu_torch import cli
+    from grape_vector_db_tpu_torch.server import grpc_server as gsrv
+    from grape_vector_db_tpu_torch.server.proto import vector_db_pb2 as pb
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(prefix="gvdb_serve_")
+    data = os.path.join(tmp.name, "data")
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "grape_vector_db_tpu_torch.cli", "serve", "--host", "127.0.0.1",
+         "--grpc-port", "0", "--rest-port", "0", "--data-dir", data],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    seen = []
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+    try:
+        m = None
+        deadline = time.monotonic() + 180
+        while m is None and time.monotonic() < deadline and proc.poll() is None:
+            try:
+                seen.append(lines.get(timeout=1.0))
+            except queue.Empty:
+                continue
+            m = re.search(r"serving: grpc=:(\d+) rest=([\d.]+):(\d+)", seen[-1])
+        require(m is not None, f"serve printed no banner in time: {''.join(seen)[-3000:]}")
+        boot_s = time.perf_counter() - t_phase
+        client = gsrv.VectorDbClient(f"127.0.0.1:{m[1]}", timeout_s=120.0)
+        base = f"http://{m[2]}:{m[3]}"
+        x = np.random.default_rng(SEED + 30).standard_normal((CLI_ROWS, DIM), dtype=np.float32)
+
+        def upsert(lo):
+            r = client.upsert_points([pb.Point(id=f"doc{i}", vector=pb.Vector(values=x[i]),
+                                               payload={"g": str(i % 10)})
+                                      for i in range(lo, lo + 1024)])
+            require(r.upserted == 1024 and not r.error, f"UpsertVector: {r.error}")
+
+        # four client threads, so that building the next request overlaps the server's work
+        _, _, ingest_s = on_threads(upsert, range(0, CLI_ROWS, 1024), threads=4)
+        gen = np.random.default_rng(SEED + 31)
+        queries = np.concatenate([
+            x[gen.choice(CLI_ROWS, 32, replace=False)]
+            + 0.5 * gen.standard_normal((32, DIM), dtype=np.float32),
+            gen.standard_normal((32, DIM), dtype=np.float32)])
+        (o_vals, o_ids), (f_vals, f_ids) = oracle([(0, x)], queries, lambda r: r % 10)
+        res, secs, _ = on_threads(
+            lambda j: client.search(queries[j].astype(float).tolist(), limit=10,
+                                    with_payload=False), range(64), threads=8)
+        check_hits("serve subprocess k=10", [r.results for r in res], o_vals, o_ids, 10)
+        res = [client.search(queries[j].astype(float).tolist(), limit=10, filter_sql="g = 3")
+               for j in range(8)]
+        check_hits("serve subprocess filtered", [r.results for r in res], f_vals[:8], f_ids[:8],
+                   10)
+        st = client.call("GetStats", pb.GetStatsRequest())
+        code, text = rest_call(base, "GET", "/metrics")
+        hbm = metric_value(text, "hbm_bytes_in_use")
+        client.close()
+        require(st.document_count == CLI_ROWS and code == 200 and hbm > 0,
+                f"serve subprocess: {st.document_count} documents, /metrics {code}, "
+                f"hbm_bytes_in_use {hbm}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        require(rc == 0, f"serve exited with {rc} after an interrupt: {''.join(seen)[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    log(f"[times] cli serve subprocess on the default device: banner after {boot_s:.1f} s; "
+        f"{CLI_ROWS} x {DIM} rows over gRPC in {CLI_ROWS // 1024} RPCs of 1,024 from 4 threads: "
+        f"{ingest_s:.2f} s "
+        f"({CLI_ROWS / ingest_s:.0f} rows/s, into the file store); 64 searches from 8 threads "
+        f"({pct_ms(secs)}) and 8 filtered agree with the numpy oracle; /metrics "
+        f"hbm_bytes_in_use {hbm:.0f}; exit code {rc} after SIGINT")
+
+    def run(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return ([json.loads(line) for line in buf.getvalue().splitlines() if line.strip()],
+                time.perf_counter() - t0)
+
+    for name, keys in CLI_KEYS.items():
+        rows, sec = run([name])
+        require(rows and all(set(r) == keys for r in rows),
+                f"cli {name} printed {rows}, wanted the keys {sorted(keys)}")
+        log(f"[cli] {name} ({sec:.1f} s): " + " ".join(json.dumps(r) for r in rows))
+    rows, sec = run(["tune", "--data-dir", data])
+    require(rows == [{"kind": "flat", "documents": CLI_ROWS}], f"cli tune printed {rows}")
+    log(f"[cli] tune on the served data directory ({sec:.1f} s, reopen included): {rows[0]}")
+    tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[time] cli phase {phase_s:.1f} s")
+    return phase_s
 
 
 def main():
@@ -3014,9 +3510,14 @@ def main():
     probe_adversarial()
     kernel_stats["hamming"] = hamming_phase()
     torch.cuda.empty_cache()
-    launches = flat_path()
+    launches, flat_db = flat_path()
     launches.update(variant_launches)
+    server_stats, server_s = server_path(flat_db)
+    del flat_db
     torch.cuda.empty_cache()
+    cli_s = cli_path()
+    log(f"[time] server and cli phases {server_s + cli_s:.1f} s (budget {SERVER_BUDGET_S:.0f} s"
+        f"{', over it' if server_s + cli_s > SERVER_BUDGET_S else ''})")
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     corpus = Clustered(IVF_ROWS)
     counts, kernel_stats["ivf_probe"] = ivf_path("ivf", corpus, IVF_NLIST)
@@ -3068,12 +3569,16 @@ def main():
     del clustered
     torch.cuda.empty_cache()
     flat_b1, embedded_b1 = launches["segmax4"], embedded_path()
-    launches["segmax4"] = flat_b1 + embedded_b1["launches"]
-    kernel_stats["segmax4"]["launches_by_path"] = {"flat": flat_b1,
-                                                   "embedded": embedded_b1["launches"]}
+    by_path = {"segmax4": {"flat": flat_b1, "server": server_stats["segmax4"]["launches"],
+                           "embedded": embedded_b1["launches"]},
+               "segmax2": {"flat": launches["segmax2"],
+                           "server": server_stats["segmax2"]["launches"]}}
+    for name, paths in by_path.items():
+        launches[name] = sum(paths.values())
+        kernel_stats[name]["launches_by_path"] = paths
+        kernel_stats[name]["server"] = server_stats[name]
+        log(f"[kernels] {name} launches by path: {paths}")
     kernel_stats["segmax4"]["embedded"] = embedded_b1
-    log(f"[embedded] segmax4 (B1) launches by path: flat {flat_b1}, "
-        f"embedded {embedded_b1['launches']}")
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     # a phase's stats never overwrite the identifying keys
     entries = [{**kernel_stats[name], "name": name, "route": "cuda", "source": src,

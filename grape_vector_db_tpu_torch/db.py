@@ -475,7 +475,8 @@ class VectorDatabase:
              queries: Optional[np.ndarray] = None, hard: bool = False,
              max_host_rescore: int = 64) -> dict:
         """Tune the index's recall/speed knob for a recall target on this
-        corpus and pin the search path to it. IVF kinds sweep nprobe; exact
+        corpus and pin the search path to it. IVF kinds sweep nprobe, the
+        binary two-stage kind its rescore budget (``tune_rescore``); exact
         kinds have nothing to tune.
 
         - default (``hard=False``, no ``queries``): the self-recall protocol,
@@ -489,11 +490,14 @@ class VectorDatabase:
         """
         out: dict = {"kind": self.index.kind}
         tune_np = getattr(self.index, "tune_nprobe", None)
+        tune_rs = getattr(self.index, "tune_rescore", None)
         if tune_np is not None:
             if hard or queries is not None:
                 out.update(self._tune_hard(queries, k, target_recall, max_host_rescore))
             else:
                 out["nprobe"] = tune_np(k=k, target_recall=target_recall)
+        elif tune_rs is not None and getattr(self.index, "keep_vectors", False):
+            out["rescore_budget"] = tune_rs(k=k, target_recall=target_recall)
         self.engine.invalidate_cache()
         return out
 

@@ -1069,3 +1069,72 @@ def test_add_batch_device_matches_add_batch_on_cuda(cuda, storage_dtype):
     assert torch.equal(dev.norms, host.norms) and torch.equal(dev.valid, host.valid)
     q = rows[:16] + 0.1 * g.standard_normal((16, 96)).astype(np.float32)
     assert dev.search_batch(q, 10) == host.search_batch(q, 10)
+
+
+@pytest.mark.cuda
+def test_server_on_cuda_answers_each_group(cuda, monkeypatch):
+    """A small bf16 database on the card behind the gRPC and REST servers
+    answers one RPC of each group; with the segment route lowered to its
+    8192 rows, an unfiltered search through the micro-batcher runs B1 and
+    comes back exact against a product on the card."""
+    import json
+    import urllib.request
+
+    from grape_vector_db_tpu_torch import VectorDatabase, VectorDbConfig
+    from grape_vector_db_tpu_torch.server.grpc_server import VectorDbClient, build_grpc_server
+    from grape_vector_db_tpu_torch.server.proto import vector_db_pb2 as pb
+    from grape_vector_db_tpu_torch.server.rest import RestServer
+
+    monkeypatch.setattr(tdist, "SEGMAX_MIN_ROWS", 4096)
+    cfg = VectorDbConfig(vector_dimension=128)
+    cfg.index.initial_capacity = 8192
+    db = VectorDatabase(config=cfg, device=cuda)
+    server, port, servicer = build_grpc_server(db, port=0)
+    server.start()
+    rest = RestServer(db, port=0)
+    host, rport = rest.start()
+    client = VectorDbClient(f"127.0.0.1:{port}")
+    try:
+        x = np.random.default_rng(9).standard_normal((8000, 128)).astype(np.float32)
+        for s in range(0, 8000, 2000):
+            resp = client.upsert_points([pb.Point(id=f"p{i}", vector=pb.Vector(values=x[i]),
+                                                  payload={"g": str(i % 4)})
+                                         for i in range(s, s + 2000)])
+            assert resp.upserted == 2000 and not resp.error
+        before = tseg.LAUNCHES["segmax4"]
+        got = client.search(x[7].tolist(), limit=10, with_payload=False)
+        assert tseg.LAUNCHES["segmax4"] > before and servicer.batcher.queries_run == 1
+        xs = torch.from_numpy(x).to(cuda).to(torch.bfloat16).float()
+        s = torch.nn.functional.normalize(xs, dim=1) @ torch.nn.functional.normalize(
+            torch.from_numpy(x[7]).to(cuda), dim=0)
+        vals, rows = torch.topk(s, 10)
+        assert_hits_match([[(r.id, r.score) for r in got.results]],
+                          [[(f"p{int(i)}", float(v)) for i, v in zip(rows, vals)]], 3e-3)
+        flt = client.search(x[7].tolist(), limit=5, filter_sql="g = 3")
+        assert len(flt.results) == 5 and all(r.payload["g"] == "3" for r in flt.results)
+        assert client.call("GetVector", pb.GetVectorRequest(id="p7")).found
+        assert client.call("DeleteVector", pb.DeleteVectorRequest(ids=["p7"])).deleted == 1
+        assert client.call("AddDocument", pb.AddDocumentRequest(documents=[
+            pb.Document(id="doc", content="served on the card")])).ids == ["doc"]
+        assert not client.call("SearchDocuments", pb.SearchDocumentsRequest(
+            query="card", mode="text")).error
+        assert client.call("GetClusterInfo", pb.GetClusterInfoRequest()).cluster_id == "standalone"
+        assert not client.call("RequestVote", pb.RequestVoteRequest(term=1)).vote_granted
+        assert client.call("GetShardInfo", pb.GetShardInfoRequest()).point_count == 8000
+        assert client.call("GetStats", pb.GetStatsRequest()).document_count == 8000
+        text = client.call("GetMetrics", pb.GetMetricsRequest()).prometheus_text
+        hbm = [line for line in text.splitlines() if "hbm_bytes_in_use" in line
+               and not line.startswith("#")]
+        assert hbm and float(hbm[0].split()[-1]) > 0
+        with urllib.request.urlopen(f"http://{host}:{rport}/health", timeout=30) as r:
+            assert json.loads(r.read())["status"] == "healthy"
+        body = json.dumps({"mode": "vector", "vector": x[8].tolist(), "limit": 3}).encode()
+        req = urllib.request.Request(f"http://{host}:{rport}/api/v1/search", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert json.loads(r.read())["results"][0]["id"] == "p8"
+    finally:
+        client.close()
+        rest.stop()
+        server.stop(grace=0)
+        db.close()

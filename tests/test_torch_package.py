@@ -26,11 +26,24 @@ COPIES = [
     "engine/filtering.py", "engine/sparse.py", "engine/hybrid.py",
     "engine/performance.py", "engine/planner.py", "services/__init__.py",
     "services/concurrent.py", "services/enterprise.py", "services/resilience.py",
-    "embedded.py",
+    "embedded.py", "server/__init__.py", "server/proto/__init__.py",
+    "server/proto/vector_db_pb2.py", "server/proto/vector_db.proto", "server/rest.py",
+    "bench/__init__.py",
 ]
-# modules copied with one function changed
-CHANGED = [("services/metrics.py", "record_hbm"),
-           ("services/embeddings.py", "create_provider")]
+# modules copied with some definitions changed: functions by name or
+# ``Class.method``, a top-level import by its text, ``__doc__`` for the
+# module docstring
+CHANGED = [
+    ("services/metrics.py", ["record_hbm"]),
+    ("services/embeddings.py", ["create_provider"]),
+    ("utils/tracing.py", ["__doc__", "import jax", "trace_span", "profile_to"]),
+    ("server/grpc_server.py", ["VectorDbServicer.__init__"]),
+    ("bench/suite.py", ["BenchmarkSuite.__init__", "BenchmarkSuite.build_dataset"]),
+    ("cli.py", ["_mkdb", "cmd_benchmark", "cmd_performance_test",
+                "cmd_simple_performance_test", "cmd_concurrent_insert_test",
+                "cmd_storage_analysis", "cmd_fusion_benchmark", "cmd_serve", "cmd_tune",
+                "main"]),
+]
 
 
 def _port_files():
@@ -99,19 +112,49 @@ def test_copied_module_matches_jax_original(rel):
         "the module into a shared JAX-free package")
 
 
-def _without_function(src: str, name: str) -> str:
+def _definitions(src: str, names) -> dict:
+    """name -> AST node, for each of ``names`` that ``src`` defines (see
+    CHANGED). A bare function name must name one function, at any depth."""
     tree = ast.parse(src)
-    for node in ast.walk(tree):
-        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and node.name == name:
-            lines = src.splitlines()
-            return "\n".join(lines[:node.lineno - 1] + lines[node.end_lineno:])
-    raise AssertionError(f"no function {name}")
+    found = {}
+    if "__doc__" in names and ast.get_docstring(tree) is not None:
+        found["__doc__"] = tree.body[0]
+    funcs = []   # (qualified name, node)
+
+    def visit(body, prefix):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                funcs.append((prefix + node.name, node))
+            elif isinstance(node, ast.ClassDef):
+                visit(node.body, prefix + node.name + ".")
+            elif isinstance(node, (ast.Import, ast.ImportFrom)) and not prefix:
+                if ast.unparse(node) in names:
+                    found[ast.unparse(node)] = node
+
+    visit(tree.body, "")
+    for name in names:
+        hits = [n for q, n in funcs if q == name or ("." not in name and q.endswith("." + name))]
+        assert len(hits) <= 1, f"{name} names {len(hits)} functions: qualify it by its class"
+        if hits:
+            found[name] = hits[0]
+    return found
 
 
-@pytest.mark.parametrize("rel,func", CHANGED)
-def test_changed_module_matches_outside_its_function(rel, func):
-    assert (_without_function(_read_port(rel), func)
-            == _without_function(_renamed(rel), func))
-    assert "jax" not in ast.get_source_segment(
-        _read_port(rel), next(n for n in ast.walk(ast.parse(_read_port(rel)))
-                              if getattr(n, "name", None) == func))
+def _without(src: str, nodes) -> str:
+    """``src`` with the lines of ``nodes`` cut out."""
+    cut = set()
+    for node in nodes:
+        first = min([node.lineno] + [d.lineno for d in getattr(node, "decorator_list", [])])
+        cut.update(range(first - 1, node.end_lineno))
+    return "\n".join(line for i, line in enumerate(src.splitlines()) if i not in cut)
+
+
+@pytest.mark.parametrize("rel,names", CHANGED, ids=["-".join([r, *n]) for r, n in CHANGED])
+def test_changed_module_matches_outside_its_function(rel, names):
+    port, ref = _read_port(rel), _renamed(rel)
+    in_ref, in_port = _definitions(ref, names), _definitions(port, names)
+    assert set(in_ref) == set(names), f"{rel}: the original lacks {set(names) - set(in_ref)}"
+    assert _without(port, in_port.values()) == _without(ref, in_ref.values())
+    for name, node in in_port.items():
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            assert "jax" not in ast.get_source_segment(port, node), f"{rel} {name}"
