@@ -80,7 +80,20 @@ the port's paths through ``VectorDatabase`` on the card:
   the batching executor, the B = 256 batch through B1 against the oracle over
   the index's rows and B1 against its plain version on the index's own plane,
   filters, the enterprise wrappers, index snapshot, backup
-  and restore, close and reopen.
+  and restore, close and reopen;
+- the distributed tier: a ``ClusterService`` of 3 nodes, 16 shards, RF = 2
+  (the reference CLI's ``serve`` defaults on the 3-node minimum its README
+  names) over the default flat index at D = 768, every node's index on the
+  card: 1,048,576 documents upserted with a session token (each node holds
+  ~2/3 of them, so every shard-local leg runs B1 or B2), session searches
+  from 32 threads through all three coordinators at k = 10 and 3,
+  ``search_batch`` at B = 64, 1,024 deletes, node-3 failed (searches through
+  node-1 stay exact) and recovered, each answer against the numpy oracle
+  over the live documents, then B1 and B2 against their plain versions on
+  node-1's plane; and three ``cli serve --node-id --peers`` processes on
+  the card over gRPC: 16,384 rows (a cut of scale from 65,536, for the
+  phase's budget) upserted at one, searched at another, one killed,
+  searched at the third.
 
 B3, B4 and B5 are timed beside their nearest library composition (the probed
 lists' rows gathered, B4's codes cast and B5's nibbles unpacked to bf16,
@@ -96,10 +109,11 @@ parent); without it those comparisons are skipped and logged as such.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Every phase raises on failure. Earlier lines report each phase;
 the line before the last is a JSON object with one entry per kernel (B1's
-entry carries its launches on the flat, server and embedded paths, split
-under "launches_by_path", its check and times on the served plane under
-"server" and on the embedded index's plane under "embedded"; B2's its
-launches on the flat and server paths and its served-plane figures; B4/B5's entries carry their launches on the IVF path; the projected path's own run
+entry carries its launches on the flat, server, embedded and cluster paths,
+split under "launches_by_path", its check and times on the served plane
+under "server", on the embedded index's plane under "embedded" and on a
+cluster node's plane under "cluster"; B2's its launches on the flat, server
+and cluster paths and its served-plane and cluster-plane figures; B4/B5's entries carry their launches on the IVF path; the projected path's own run
 at D = 384 sits under their "d384" key; B4/B5's grouping pass has its own
 entry, "ivf_group", whose launches are both paths' with the split under
 "launches_by_path"; B11 has one entry for the graph
@@ -3495,6 +3509,379 @@ def cli_path():
     return phase_s
 
 
+# -- the distributed tier ---------------------------------------------------------------
+
+CLUSTER_BUDGET_S = 240.0  # cluster_path's two parts together
+CLUSTER_DOCS = N_ROWS     # documents of the in-process cluster
+CLUSTER_NODES = ("node-1", "node-2", "node-3")
+CLUSTER_QUERIES = 256     # half near stored documents (of the first batch), half anywhere
+CLUSTER_SEARCHES = 768    # session searches from 32 threads, at each k
+CLUSTER_BATCH = 64        # search_batch's B
+CLUSTER_DELETES = 1024
+# rows the three serve processes take over gRPC: cut from 65,536 for the
+# phase's budget (the uncut part took 103.6 s, 62.9 s of it the ingest)
+GRPC_ROWS = 1 << 14
+
+
+class Pair:
+    """A cluster hit ``(id, score)`` as check_hits reads one."""
+
+    def __init__(self, hit):
+        self.id, self.score = hit
+
+
+def check_pairs(name, rows, o_vals, o_ids, k, exclude=frozenset()):
+    check_hits(name, [[Pair(h) for h in row] for row in rows], o_vals, o_ids, k, exclude)
+
+
+def wait_for(cond, timeout_s: float, what: str) -> float:
+    """Seconds until cond() holds, polled every 20 ms; fails after timeout_s."""
+    t0 = time.perf_counter()
+    while not cond():
+        require(time.perf_counter() - t0 < timeout_s, f"{what}: not within {timeout_s} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def cluster_path():
+    """The distributed tier on the card, in two parts. In process: a
+    ``ClusterService`` of 3 nodes, 16 shards, RF = 2 (the reference CLI's
+    ``serve`` defaults on the 3-node minimum its README names) over the
+    default flat, cosine, bf16 index at D = 768, every node's index on the
+    card; 1,048,576 documents upserted with a session token (each node holds
+    ~2/3 of them, so every shard-local leg runs B1 or B2), session searches
+    from 32 threads through all three coordinators at k = 10 and 3,
+    ``search_batch``, a delete, node-3 failed and recovered, each answer
+    against the numpy oracle over the live documents; then B1 and B2 against
+    their plain versions on node-1's plane. Over gRPC: three ``cli serve
+    --node-id --peers`` processes on the card (default shard and replica
+    counts), rows upserted at n1 and searched at n3, n2 killed, searches at
+    n1. Returns ({B1/B2 name: its entry for this path}, phase seconds)."""
+    from grape_vector_db_tpu_torch import Document, VectorDbConfig
+    from grape_vector_db_tpu_torch.distributed.cluster_service import ClusterService
+    from grape_vector_db_tpu_torch.distributed.types import ClusterConfig, SessionToken
+    from grape_vector_db_tpu_torch.ops import distance
+    from grape_vector_db_tpu_torch.ops.distance import scored_topk
+
+    t_phase = time.perf_counter()
+    seg_min = distance.SEGMAX_MIN_ROWS
+    svc = ClusterService(list(CLUSTER_NODES), ClusterConfig(shard_count=16, replica_count=2),
+                         VectorDbConfig(), device=DEV)
+    svc.start()
+    nodes = [svc.nodes[n] for n in CLUSTER_NODES]
+    idx = nodes[0].db.index
+    log(f"[cluster] ClusterService {list(CLUSTER_NODES)} on {DEV} ({CARD}): "
+        f"{svc.config.shard_count} shards, RF {svc.config.replica_count}, consistency "
+        f"{svc.config.consistency.value}; index {idx.kind}, {idx.metric}, {idx.storage_dtype}, "
+        f"D={nodes[0].db.config.vector_dimension}; leader {nodes[0].raft.leader_id}")
+
+    # host time of every shard-local leg batch (each node's micro-batcher calls)
+    legs = []
+    for n in nodes:
+        inner = n._search_batcher._fn
+
+        def timed_leg(q, k, inner=inner):
+            t0 = time.perf_counter()
+            try:
+                return inner(q, k)
+            finally:
+                legs.append(time.perf_counter() - t0)
+
+        n._search_batcher._fn = timed_leg
+
+    rng = np.random.default_rng(SEED + 40)
+    near = rng.choice(INGEST_BATCH, CLUSTER_QUERIES // 2, replace=False)
+    _, first = next(corpus_batches())
+    queries = np.concatenate([
+        first[near] + 0.5 * rng.standard_normal((len(near), DIM), dtype=np.float32),
+        rng.standard_normal((CLUSTER_QUERIES - len(near), DIM), dtype=np.float32)])
+    del first
+    tok = SessionToken()
+    n_batches = CLUSTER_DOCS // INGEST_BATCH
+    acked = []
+
+    def ingest():
+        """Upserts each batch, then hands it to the oracle."""
+        for start, x in itertools.islice(corpus_batches(), n_batches):
+            docs = [Document(id=f"doc{start + i}", content="", vector=x[i])
+                    for i in range(len(x))]
+            t0 = time.perf_counter()
+            require(svc.upsert(docs, session=tok) == len(docs), "upsert wrote fewer")
+            acked.append(time.perf_counter() - t0)
+            yield start, x
+
+    reset_counts()
+    t0 = time.perf_counter()
+    (o_vals, o_ids), _ = oracle(ingest(), queries, lambda rows: rows % 10)
+    ingest_wall = time.perf_counter() - t0
+    def stored():
+        return [n.db.store.count() for n in nodes]
+
+    settle_s = wait_for(lambda: sum(stored()) == 2 * CLUSTER_DOCS, 120.0,
+                        "the asynchronous replica writes")
+    per_node = stored()
+    log(f"[times] cluster ingest {CLUSTER_DOCS} documents in batches of {INGEST_BATCH} "
+        f"through ClusterService.upsert with a session: {sum(acked):.2f} s inside upsert "
+        f"({CLUSTER_DOCS / sum(acked):.0f} docs/s acknowledged); every replica written "
+        f"{settle_s:.2f} s after the oracle's pass ({ingest_wall:.2f} s with it); rows per "
+        f"node {dict(zip(CLUSTER_NODES, per_node))}; capacity "
+        f"{[n.db.index.capacity for n in nodes]}")
+    # above this many rows every leg runs B1 (k >= 4) or B2 (k <= 3)
+    require(all(r >= seg_min for r in per_node), f"a node holds under {seg_min} rows: "
+            f"{per_node}")
+
+    qlists = queries.astype(float).tolist()
+    b0 = [(n._search_batcher.batches_run, n._search_batcher.queries_run) for n in nodes]
+    hits10 = []
+    for k in (10, 3):
+        jobs = [(j % CLUSTER_QUERIES, k) for j in range(CLUSTER_SEARCHES)]
+        leg0 = len(legs)
+        res, secs, wall = on_threads(
+            lambda a: nodes[a[0] % 3].search(qlists[a[0]], a[1], session=tok), jobs)
+        for (j, _), row in zip(jobs, res):
+            check_pairs(f"cluster search k={k} q{j}", [row], o_vals[j:j + 1], o_ids[j:j + 1], k)
+        hits10 += [i for row in res for i, _ in row] if k == 10 else []
+        log(f"[times] cluster search k={k} with the session, {SERVER_THREADS} threads over "
+            f"the 3 coordinators, {len(jobs)} searches: {pct_ms(secs)}, "
+            f"{len(jobs) / wall:.0f} QPS; the legs' vector_search_batch calls "
+            f"{pct_ms(legs[leg0:])}; all exact")
+    avg = {n.node_id: round((n._search_batcher.queries_run - q) / max(
+        n._search_batcher.batches_run - b, 1), 2) for n, (b, q) in zip(nodes, b0)}
+    log(f"[cluster] the nodes' micro-batchers: avg_batch {avg}")
+
+    t0 = time.perf_counter()
+    batch = nodes[0].search_batch(qlists[:CLUSTER_BATCH], k=10, session=tok)
+    batch_s = time.perf_counter() - t0
+    check_pairs(f"cluster search_batch B={CLUSTER_BATCH}", batch, o_vals, o_ids, 10)
+    batch_med = timed(lambda: nodes[1].search_batch(qlists[:CLUSTER_BATCH], k=10), reps=5)
+    log(f"[times] cluster search_batch B={CLUSTER_BATCH} k=10: {batch_s * 1e3:.3f} ms with "
+        f"the session, median {batch_med * 1e3:.3f} ms of 5 without; exact")
+
+    doomed = list(dict.fromkeys(int(i[3:]) for i in hits10))[:CLUSTER_DELETES]
+    taken = set(doomed)
+    doomed += [i for i in range(CLUSTER_DOCS) if i not in taken][:CLUSTER_DELETES - len(doomed)]
+    n_del = svc.delete([f"doc{i}" for i in doomed], session=tok)
+    require(n_del == CLUSTER_DELETES, f"deleted {n_del}, wanted {CLUSTER_DELETES}")
+    gone = frozenset(doomed)
+    res, secs, _ = on_threads(lambda j: nodes[j % 3].search(qlists[j], 10, session=tok),
+                              range(CLUSTER_QUERIES))
+    check_pairs("cluster search after delete", res, o_vals, o_ids, 10, exclude=gone)
+    after = nodes[2].search_batch(qlists[:CLUSTER_BATCH], k=10, session=tok)
+    check_pairs("cluster search_batch after delete", after, o_vals, o_ids, 10, exclude=gone)
+    log(f"[cluster] deleted {n_del} ids (the top hits first): {CLUSTER_QUERIES} searches "
+        f"({pct_ms(secs)}) and a batch again, exact, none of them back")
+    launches = read_counts()
+
+    # a leg batch's device span on node-1's index; then B1 and B2 on its plane
+    qt = torch.from_numpy(queries[:CLUSTER_BATCH]).to(DEV)
+    span = cuda_ms(lambda: scored_topk(qt, idx.vectors, idx.norms, idx.valid, 10,
+                                       metric=idx.metric, chunk=min(65536, idx.capacity),
+                                       mode=idx.search_mode), 20)
+    log(f"[times] cluster device span of one leg batch B={CLUSTER_BATCH} k=10 on node-1 "
+        f"({len(idx)} rows; scored_topk: B1 and phase 2; CUDA events, mean of 20): "
+        f"{span:.3f} ms against the legs' host p50 "
+        f"{np.percentile(np.array(legs) * 1e3, 50):.3f} ms")
+    out = {name: index_plane_check("cluster node-1", name, idx, queries[:CLUSTER_BATCH])
+           for name in ("segmax4", "segmax2")}
+
+    # node-3 fails: every shard keeps one live owner at RF = 2
+    reset_counts()
+    n1 = nodes[0]
+    t0 = time.perf_counter()
+    svc.sim.fail_node("node-3")
+    first_exact = None
+    while first_exact is None:
+        row = n1.search(qlists[0], 10)
+        try:
+            check_pairs("cluster search during failover", [row], o_vals, o_ids, 10, exclude=gone)
+            first_exact = time.perf_counter() - t0
+        except AssertionError:
+            require(time.perf_counter() - t0 < 60.0, "no exact answer within 60 s of the failure")
+    wait_for(lambda: n1.cluster_health().status != "healthy", 60.0,
+             "node-1 detecting node-3's failure")
+    detect_s = time.perf_counter() - t0
+    res, secs, _ = on_threads(lambda j: n1.search(qlists[j], 10), range(CLUSTER_QUERIES))
+    check_pairs("cluster search through node-1 after the failure", res, o_vals, o_ids, 10,
+                exclude=gone)
+    health = n1.cluster_health()
+    log(f"[times] cluster failover: fail_node('node-3'); the first exact answer through "
+        f"node-1 {first_exact:.3f} s after it, detection after {detect_s:.2f} s; "
+        f"{CLUSTER_QUERIES} searches through node-1 then ({pct_ms(secs)}), exact; "
+        f"cluster_health() {health.__dict__}")
+    svc.sim.recover_node("node-3")
+    t0 = time.perf_counter()
+    back_s = wait_for(lambda: all(n.cluster_health().status == "healthy" for n in nodes),
+                      60.0, "health back to healthy")
+    log(f"[cluster] recover_node('node-3'): every node healthy after {back_s:.2f} s; "
+        f"cluster_health() {n1.cluster_health().__dict__}")
+    for name, n in read_counts().items():
+        launches[name] += n
+    for name in ("segmax4", "segmax2"):
+        require(launches[name] > 0, f"the cluster path never launched {name}")
+        out[name]["launches"] = launches[name]
+    log(f"[cluster] kernel launches on the path {launches}")
+    svc.stop()
+    del svc, nodes, idx, n1, qt
+    torch.cuda.empty_cache()
+    inproc_s = time.perf_counter() - t_phase
+    log(f"[time] cluster in-process part {inproc_s:.1f} s")
+    grpc_s = cluster_grpc_part()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[time] cluster phase {phase_s:.1f} s (in process {inproc_s:.1f} s, gRPC "
+        f"{grpc_s:.1f} s; budget {CLUSTER_BUDGET_S:.0f} s"
+        f"{', over it' if phase_s > CLUSTER_BUDGET_S else ''})")
+    return out, phase_s
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cluster_grpc_part() -> float:
+    """Three ``python3 -m grape_vector_db_tpu_torch.cli serve --node-id n<i>
+    --peers ...`` processes on the card, the default shard and replica
+    counts: GRPC_ROWS rows upserted at n1 from 4 client threads, searches at
+    n3 with the upserts' session versions, each process's device memory from
+    /metrics, n2 killed, searches at n1; every answer against the numpy
+    oracle. Also the codec's share of the ingest: the Internal RPCs' msgpack
+    work for the run's document hops at the per-document cost measured here.
+    Returns the part's seconds."""
+    import queue
+    import signal
+    import tempfile
+    import threading
+
+    from grape_vector_db_tpu_torch import Document
+    from grape_vector_db_tpu_torch.distributed.shard import ShardMap
+    from grape_vector_db_tpu_torch.server import grpc_server as gsrv
+    from grape_vector_db_tpu_torch.server.proto import vector_db_pb2 as pb
+    from grape_vector_db_tpu_torch.storage import msgpack_codec
+
+    t_part = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(prefix="gvdb_cluster_")
+    ports = {f"n{i}": free_port() for i in (1, 2, 3)}
+    peers = ",".join(f"{n}=127.0.0.1:{p}" for n, p in ports.items())
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs, lines, seen, rest = {}, {}, {n: [] for n in ports}, {}
+    for n in ports:
+        procs[n] = subprocess.Popen(
+            [sys.executable, "-m", "grape_vector_db_tpu_torch.cli", "serve", "--host",
+             "127.0.0.1", "--rest-port", "0", "--node-id", n, "--peers", peers,
+             "--data-dir", os.path.join(tmp.name, n)],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        lines[n] = queue.Queue()
+        threading.Thread(target=lambda p=procs[n], q=lines[n]: [q.put(x) for x in p.stdout],
+                         daemon=True).start()
+    clients = {}
+    try:
+        for n in ports:
+            m = None
+            deadline = time.monotonic() + 180
+            while m is None and time.monotonic() < deadline and procs[n].poll() is None:
+                try:
+                    seen[n].append(lines[n].get(timeout=1.0))
+                except queue.Empty:
+                    continue
+                m = re.search(r"serving: grpc=:(\d+) rest=([\d.]+):(\d+)", seen[n][-1])
+            require(m is not None, f"{n} printed no banner: {''.join(seen[n])[-3000:]}")
+            rest[n] = f"http://{m[2]}:{m[3]}"
+            clients[n] = gsrv.VectorDbClient(f"127.0.0.1:{ports[n]}", timeout_s=120.0)
+        boot_s = time.perf_counter() - t_part
+
+        def converged():
+            infos = [c.call("GetClusterInfo", pb.GetClusterInfoRequest(), timeout_s=5)
+                     for c in clients.values()]
+            return all(len(i.members) == 3 for i in infos) and any(i.leader_id for i in infos)
+
+        join_s = wait_for(converged, 60.0, "the three processes' membership")
+        x = np.random.default_rng(SEED + 41).standard_normal((GRPC_ROWS, DIM), dtype=np.float32)
+        versions, vlock = {}, threading.Lock()
+
+        def upsert(lo):
+            r = clients["n1"].upsert_points([pb.Point(id=f"doc{i}", vector=pb.Vector(values=x[i]))
+                                             for i in range(lo, lo + 1024)])
+            require(r.upserted == 1024 and not r.error, f"UpsertVector at n1: {r.error}")
+            with vlock:
+                for sid, v in r.session_versions.items():
+                    versions[sid] = max(v, versions.get(sid, 0))
+
+        _, _, ingest_s = on_threads(upsert, range(0, GRPC_ROWS, 1024), threads=4)
+        gen = np.random.default_rng(SEED + 42)
+        queries = np.concatenate([
+            x[gen.choice(GRPC_ROWS, 32, replace=False)]
+            + 0.5 * gen.standard_normal((32, DIM), dtype=np.float32),
+            gen.standard_normal((32, DIM), dtype=np.float32)])
+        (o_vals, o_ids), _ = oracle([(0, x)], queries, lambda r: r % 10)
+        qlists = queries.astype(float).tolist()
+
+        def search_at(n):
+            def one(j):
+                r = clients[n].search(qlists[j], limit=10, with_payload=False,
+                                      min_versions=versions)
+                require(not r.error, f"SearchVectors at {n}: {r.error}")
+                return r.results
+            res, secs, _ = on_threads(one, range(len(qlists)), threads=8)
+            check_hits(f"gRPC cluster search at {n}", res, o_vals, o_ids, 10)
+            return secs
+
+        secs3 = search_at("n3")
+        hbm = {}
+        for n in ports:
+            code, text = rest_call(rest[n], "GET", "/metrics")
+            hbm[n] = metric_value(text, "hbm_bytes_in_use")
+        require(all(v > 0 for v in hbm.values()), f"hbm_bytes_in_use {hbm}")
+        stats = {n: c.call("GetStats", pb.GetStatsRequest()).document_count
+                 for n, c in clients.items()}
+        procs["n2"].kill()
+        procs["n2"].wait(timeout=30)
+        clients.pop("n2").close()
+        secs1 = search_at("n1")
+
+        # the codec's work for the ingest's document hops: each row goes from n1
+        # to each owner of its shard but n1, packed there and unpacked at the owner
+        smap = ShardMap(shard_count=16, replica_count=2)
+        smap.assign_all(sorted(ports))
+        hops = sum(o != "n1" for i in range(GRPC_ROWS)
+                   for o in smap.nodes_for_key(f"doc{i}").all_nodes())
+        payload = {"docs": [Document(id=f"doc{i}", content="",
+                                     vector=x[i].astype(float).tolist()).to_dict()
+                            for i in range(64)]}
+        pack_s = timed(lambda: msgpack_codec.packb(payload, use_bin_type=True), reps=5) / 64
+        raw = msgpack_codec.packb(payload)
+        unpack_s = timed(lambda: msgpack_codec.unpackb(raw, raw=False), reps=5) / 64
+        log(f"[times] cluster gRPC: 3 serve processes on the card, banners after "
+            f"{boot_s:.1f} s, membership after {join_s:.2f} s more; {GRPC_ROWS} x {DIM} rows by "
+            f"UpsertVector at n1 ({GRPC_ROWS // 1024} RPCs of 1,024 from 4 threads): "
+            f"{ingest_s:.2f} s "
+            f"({GRPC_ROWS / ingest_s:.0f} rows/s); documents per process {stats}; 64 searches "
+            f"at n3 ({pct_ms(secs3)}) with the session versions, exact; hbm_bytes_in_use "
+            f"{hbm}; n2 killed: 64 searches at n1 ({pct_ms(secs1)}), exact")
+        log(f"[times] cluster gRPC codec: {hops} document hops (n1 to another owner) x "
+            f"({pack_s * 1e3:.4f} ms pack + {unpack_s * 1e3:.4f} ms unpack a 768-float document, "
+            f"measured here) = {hops * (pack_s + unpack_s):.2f} s of codec work against the "
+            f"ingest's {ingest_s:.2f} s wall ({hops * (pack_s + unpack_s) / ingest_s:.2f} of it, "
+            f"spread over the processes' threads)")
+        for n in ("n1", "n3"):
+            procs[n].send_signal(signal.SIGINT)
+        for n in ("n1", "n3"):
+            rc = procs[n].wait(timeout=60)
+            require(rc == 0, f"{n} exited with {rc} after SIGINT: {''.join(seen[n])[-3000:]}")
+    finally:
+        for c in clients.values():
+            c.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        tmp.cleanup()
+    return time.perf_counter() - t_part
+
+
 def main():
     global PARENT
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3569,14 +3956,20 @@ def main():
     del clustered
     torch.cuda.empty_cache()
     flat_b1, embedded_b1 = launches["segmax4"], embedded_path()
+    torch.cuda.empty_cache()
+    log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
+    cluster_stats, _ = cluster_path()
     by_path = {"segmax4": {"flat": flat_b1, "server": server_stats["segmax4"]["launches"],
-                           "embedded": embedded_b1["launches"]},
+                           "embedded": embedded_b1["launches"],
+                           "cluster": cluster_stats["segmax4"]["launches"]},
                "segmax2": {"flat": launches["segmax2"],
-                           "server": server_stats["segmax2"]["launches"]}}
+                           "server": server_stats["segmax2"]["launches"],
+                           "cluster": cluster_stats["segmax2"]["launches"]}}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
         kernel_stats[name]["launches_by_path"] = paths
         kernel_stats[name]["server"] = server_stats[name]
+        kernel_stats[name]["cluster"] = cluster_stats[name]
         log(f"[kernels] {name} launches by path: {paths}")
     kernel_stats["segmax4"]["embedded"] = embedded_b1
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")

@@ -199,26 +199,64 @@ def cmd_fusion_benchmark(args) -> None:
 
 
 def cmd_serve(args) -> None:
-    """Single-node server: gRPC and REST over one VectorDatabase on
-    --device. The multi-process cluster mode (--node-id/--peers, with its
-    --shard-count/--replica-count) is not ported yet and raises."""
+    """Single-node server, or one member of a multi-process cluster when
+    --node-id/--peers are given (peers: comma list of id=host:port, including
+    this node; raft + data plane run over the gRPC Internal transport). The
+    database, or the cluster node's, keeps its index on --device."""
     from grape_vector_db_tpu_torch import VectorDatabase, VectorDbConfig, load_config
-    from grape_vector_db_tpu_torch.errors import InvalidArgumentError
     from grape_vector_db_tpu_torch.server.grpc_server import build_grpc_server
     from grape_vector_db_tpu_torch.server.rest import RestServer
 
-    cluster = (args.node_id, args.peers, args.shard_count, args.replica_count)
-    if any(v is not None for v in cluster):
-        raise InvalidArgumentError(
-            "serve --node-id/--peers/--shard-count/--replica-count (cluster mode) "
-            "is not ported to the PyTorch package yet: it waits for ROADMAP A.9's "
-            "distributed tier "
-            "(distributed/*, server/cluster_adapter.py)")
     cfg = load_config(args.config) if args.config else VectorDbConfig()
-    db = VectorDatabase(path=args.data_dir, config=cfg, device=args.device)
-    server, gport, _ = build_grpc_server(db, port=args.grpc_port, tls=cfg.tls)
+
+    node = None
+    adapter = None
+    if args.node_id and args.peers:
+        from grape_vector_db_tpu_torch.distributed.cluster import ClusterNode
+        from grape_vector_db_tpu_torch.distributed.types import ClusterConfig
+        from grape_vector_db_tpu_torch.server.cluster_adapter import (
+            GrpcClusterAdapter,
+            GrpcTransport,
+        )
+
+        book = dict(p.split("=", 1) for p in args.peers.split(","))
+        transport = GrpcTransport(address_book=book, tls=cfg.tls)
+        node = ClusterNode(
+            node_id=args.node_id,
+            address=book[args.node_id],
+            seed_nodes=sorted(book),
+            transport=transport,
+            cluster_config=ClusterConfig(
+                shard_count=args.shard_count, replica_count=args.replica_count
+            ),
+            db_config=cfg,
+            data_path=args.data_dir,
+            device=args.device,
+        )
+        adapter = GrpcClusterAdapter(node)
+        db = node.db
+        grpc_port = int(book[args.node_id].rsplit(":", 1)[1])
+    else:
+        db = VectorDatabase(path=args.data_dir, config=cfg, device=args.device)
+        grpc_port = args.grpc_port
+
+    server, gport, _ = build_grpc_server(
+        db, port=grpc_port, node=adapter, cluster_node=node,
+        node_id=args.node_id or "standalone", tls=cfg.tls,
+    )
     server.start()
-    rest = RestServer(db, host=args.host, port=args.rest_port, tls=cfg.tls)
+    if node is not None:
+        node.start()
+        # register membership once the raft group has a leader
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            try:
+                node.join_cluster()
+                break
+            except Exception:
+                time.sleep(0.25)
+    rest = RestServer(db, host=args.host, port=args.rest_port, node=node,
+                      tls=cfg.tls)
     host, rport = rest.start()
     print(f"grape-vector-db-tpu serving: grpc=:{gport} rest={host}:{rport}",
           flush=True)
@@ -228,7 +266,10 @@ def cmd_serve(args) -> None:
     except KeyboardInterrupt:
         rest.stop()
         server.stop(grace=1)
-        db.close()
+        if node is not None:
+            node.stop()
+        else:
+            db.close()
 
 
 def cmd_tune(args) -> None:
@@ -296,13 +337,11 @@ def main(argv=None) -> None:
     sp.add_argument("--data-dir", default=None)
     sp.add_argument("--config", default=None)
     sp.add_argument("--node-id", default=None,
-                    help="cluster mode (not ported yet: raises)")
+                    help="cluster mode: this node's id (requires --peers)")
     sp.add_argument("--peers", default=None,
-                    help="cluster mode (not ported yet: raises)")
-    sp.add_argument("--shard-count", type=int, default=None,
-                    help="cluster mode (not ported yet: raises)")
-    sp.add_argument("--replica-count", type=int, default=None,
-                    help="cluster mode (not ported yet: raises)")
+                    help="cluster mode: comma list of id=host:port incl. self")
+    sp.add_argument("--shard-count", type=int, default=16)
+    sp.add_argument("--replica-count", type=int, default=2)
     sp.set_defaults(fn=cmd_serve)
 
     args = p.parse_args(argv)

@@ -97,7 +97,12 @@ class RestServer:
                         if doc is None:
                             self._json(404, {"error": "not found"})
                         else:
-                            self._json(200, doc.to_dict())
+                            # an embedder-made or store-decoded vector is an
+                            # ndarray, which json refuses (ROADMAP C.4)
+                            body = doc.to_dict()
+                            if hasattr(body["vector"], "tolist"):
+                                body["vector"] = body["vector"].tolist()
+                            self._json(200, body)
                     elif path == "/cluster/info":
                         if outer.node is not None:
                             self._json(200, outer.node.cluster_info_dict())

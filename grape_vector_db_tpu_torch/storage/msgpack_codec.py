@@ -17,12 +17,24 @@ dict's order). Subclasses of those pack as their base type, as msgpack does
 ``msgpack.unpackb(raw, raw=False)`` returns: str for str, bytes for bin,
 lists for arrays, dicts for maps whose keys must be str or bytes. Malformed,
 truncated or trailing input raises ``ValueError``.
+
+Both take msgpack's keywords for these settings (``use_bin_type=True``,
+``raw=False``), so code written against the msgpack package runs on this
+module unchanged; ``packb``'s ``default`` is msgpack's hook for the types it
+refuses. Embedding vectors are long runs of floats, so both directions take
+a fast route through numpy for them: an array of at least
+``_FAST_MIN`` items that are all exactly ``float`` packs as one record array
+of (0xcb, big-endian float64) pairs, and an array whose items are all 0xcb
+floats unpacks from one strided view. The bytes and values are the slow
+route's.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
 
 __all__ = ["packb", "unpackb"]
 
@@ -36,6 +48,9 @@ _i = struct.Struct(">i")
 _q = struct.Struct(">q")
 _f = struct.Struct(">f")
 _d = struct.Struct(">d")
+# a run of float64 items: one format byte, then the value, big-endian
+_F64_ITEMS = np.dtype([("t", "u1"), ("v", ">f8")])
+_FAST_MIN = 16
 
 
 def _pack_int(out: bytearray, v: int) -> None:
@@ -85,7 +100,20 @@ def _pack_len(out: bytearray, n: int, fix: int, fix_max: int, c8: int, c16: int,
         raise ValueError(f"object too large to pack: {n}")
 
 
-def _pack(out: bytearray, o: Any) -> None:
+def _pack_floats(out: bytearray, o) -> bool:
+    """Append a list or tuple whose items are all exactly ``float`` as
+    msgpack packs it; False (nothing appended) for any other content."""
+    if len(o) < _FAST_MIN or set(map(type, o)) != {float}:
+        return False
+    items = np.empty(len(o), _F64_ITEMS)
+    items["t"] = 0xCB
+    items["v"] = o
+    _pack_len(out, len(o), 0x90, 15, 0, 0xDC, 0xDD)
+    out += items.tobytes()
+    return True
+
+
+def _pack(out: bytearray, o: Any, default: Optional[Callable[[Any], Any]] = None) -> None:
     if o is None:
         out.append(0xC0)
     elif o is True:
@@ -107,24 +135,34 @@ def _pack(out: bytearray, o: Any) -> None:
     elif isinstance(o, dict):
         _pack_len(out, len(o), 0x80, 15, 0, 0xDE, 0xDF)
         for k, v in o.items():
-            _pack(out, k)
-            _pack(out, v)
+            _pack(out, k, default)
+            _pack(out, v, default)
     elif isinstance(o, (list, tuple)):
-        _pack_len(out, len(o), 0x90, 15, 0, 0xDC, 0xDD)
-        for v in o:
-            _pack(out, v)
+        if not _pack_floats(out, o):
+            _pack_len(out, len(o), 0x90, 15, 0, 0xDC, 0xDD)
+            for v in o:
+                _pack(out, v, default)
     elif isinstance(o, memoryview):
         raw = o.tobytes()
         _pack_len(out, len(raw), 0, 0, 0xC4, 0xC5, 0xC6)
         out += raw
+    elif default is not None:
+        r = default(o)
+        if type(r) is type(o):
+            raise TypeError(f"can not serialize {type(o).__name__!r} object")
+        _pack(out, r, default)
     else:
         raise TypeError(f"can not serialize {type(o).__name__!r} object")
 
 
-def packb(o: Any) -> bytes:
-    """``msgpack.packb(o, use_bin_type=True)``."""
+def packb(o: Any, *, use_bin_type: bool = True,
+          default: Optional[Callable[[Any], Any]] = None) -> bytes:
+    """``msgpack.packb(o, use_bin_type=True, default=default)``: ``default``
+    turns an object of a type msgpack refuses into one it packs."""
+    if not use_bin_type:
+        raise ValueError("only use_bin_type=True is supported")
     out = bytearray()
-    _pack(out, o)
+    _pack(out, o, default)
     return bytes(out)
 
 
@@ -137,8 +175,10 @@ _SIZED = {0xC4: ("bin", _B), 0xC5: ("bin", _H), 0xC6: ("bin", _I),
           0xDE: ("map", _H), 0xDF: ("map", _I)}
 
 
-def unpackb(data) -> Any:
+def unpackb(data, *, raw: bool = False) -> Any:
     """``msgpack.unpackb(data, raw=False)``."""
+    if raw:
+        raise ValueError("only raw=False is supported")
     data = bytes(data)
     size = len(data)
 
@@ -146,6 +186,10 @@ def unpackb(data) -> Any:
         return ValueError("Unpack failed: incomplete input")
 
     def array(pos: int, n: int) -> Tuple[list, int]:
+        if n >= _FAST_MIN and pos < size and data[pos] == 0xCB and pos + 9 * n <= size:
+            items = np.frombuffer(data, _F64_ITEMS, n, pos)
+            if (items["t"] == 0xCB).all():
+                return items["v"].tolist(), pos + 9 * n
         out = []
         for _ in range(n):
             v, pos = one(pos)

@@ -1138,3 +1138,45 @@ def test_server_on_cuda_answers_each_group(cuda, monkeypatch):
         rest.stop()
         server.stop(grace=0)
         db.close()
+
+
+@pytest.mark.cuda
+def test_cluster_legs_run_b1_on_the_card(cuda):
+    """A 3-node, 16-shard, RF=2 cluster with every index on the card and
+    ~300k rows a node: each shard-local leg of a scatter-gather search runs
+    B1, and the merged answers are exact against an f32 product on the card."""
+    from grape_vector_db_tpu_torch import Document, VectorDbConfig
+    from grape_vector_db_tpu_torch.distributed.cluster_service import ClusterService
+    from grape_vector_db_tpu_torch.distributed.types import (ClusterConfig, ConsistencyLevel,
+                                                             SessionToken)
+
+    n, d = 450_000, 128
+    svc = ClusterService(["node-1", "node-2", "node-3"],
+                         ClusterConfig(shard_count=16, replica_count=2,
+                                       consistency=ConsistencyLevel.SESSION),
+                         VectorDbConfig(vector_dimension=d), device=cuda)
+    svc.start()
+    try:
+        rng = np.random.default_rng(15)
+        x = rng.standard_normal((n, d), dtype=np.float32)
+        tok = SessionToken()
+        for s in range(0, n, 8192):
+            svc.upsert([Document(id=f"p{i}", content="", vector=x[i])
+                        for i in range(s, min(n, s + 8192))], session=tok)
+        rows = [node.db.store.count() for node in svc.nodes.values()]
+        assert sum(rows) == 2 * n and min(rows) >= tdist.SEGMAX_MIN_ROWS, rows
+        q = x[:8] + 0.1 * rng.standard_normal((8, d), dtype=np.float32)
+        before = tseg.LAUNCHES["segmax4"]
+        got = svc.search_batch(q.tolist(), k=10, session=tok)
+        single = svc.search(q[0].tolist(), k=10, session=tok)
+        assert tseg.LAUNCHES["segmax4"] >= before + 6   # one a node, twice
+        xs = torch.nn.functional.normalize(torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+                                           .float(), dim=1)
+        s = torch.nn.functional.normalize(torch.from_numpy(q).to(cuda), dim=1) @ xs.T
+        vals, ids = torch.topk(s, 10, dim=1)
+        want = [[(f"p{int(i)}", float(v)) for i, v in zip(ir, vr)]
+                for ir, vr in zip(ids.cpu(), vals.cpu())]
+        assert_hits_match(got, want, 3e-3)
+        assert_hits_match([single], want[:1], 3e-3)
+    finally:
+        svc.stop()

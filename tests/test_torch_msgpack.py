@@ -8,6 +8,7 @@ values drawn by hypothesis. Types msgpack refuses raise ``TypeError``.
 
 import enum
 import math
+import struct
 
 import msgpack
 import numpy as np
@@ -134,3 +135,74 @@ _values = st.recursive(
 @given(_values)
 def test_nested_values_byte_equal(v):
     _same(v)
+
+
+# -- the float-run route: lists of floats as one numpy record array ---------------------------
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 65535, 65536, 65537])
+def test_float_lists_byte_equal(n):
+    """fixarray, array16 and array32 headers around runs of float64 items,
+    below and above the fast route's length."""
+    xs = np.random.default_rng(n).standard_normal(n).tolist()
+    raw = _ref(xs)
+    assert packb(xs) == raw
+    got = unpackb(raw)
+    assert type(got) is list and all(type(v) is float for v in got)
+    assert got == msgpack.unpackb(raw, raw=False)
+    assert packb(tuple(xs)) == _ref(tuple(xs))
+
+
+def test_float_runs_keep_special_values():
+    specials = [float("nan"), -0.0, 0.0, float("inf"), float("-inf"), 5e-324,
+                1.7976931348623157e308]
+    xs = specials * 4
+    raw = _ref(xs)
+    assert packb(xs) == raw
+    got = unpackb(raw)
+    assert [struct.pack(">d", v) for v in got] == [struct.pack(">d", v) for v in xs]
+
+
+@pytest.mark.parametrize("xs", [
+    [1.5] * 20 + [1],                      # an int among floats
+    [1] + [1.5] * 20,
+    [1.5] * 20 + [True],                   # bool is not float
+    [1.5] * 20 + [None, "x"],
+    [1.5] * 10 + [[2.5] * 20] + [3.5] * 10,  # a nested run
+    [np.float64(1.5)] * 20,                # a float subclass packs as float64
+    [1.5] * 19 + [np.float64(2.5)],
+    {"vector": [0.25] * 768, "id": "d1", "n": [1, 2.5, "x"]},
+])
+def test_mixed_lists_byte_equal(xs):
+    _same(xs)
+
+
+def test_float_run_unpack_checks_every_tag():
+    """A run whose items are not all 0xcb floats reads through the slow
+    route: a float32 item (0xca) or an int in the middle."""
+    for tail in ([msgpack.packb(1.25, use_single_float=True)], [b"\x05"]):
+        raw = b"\xdc\x00\x14" + b"".join([_ref(0.5)] * 10 + tail + [_ref(0.5)] * 9)
+        assert unpackb(raw) == msgpack.unpackb(raw, raw=False)
+    # truncated: the strided view would reach past the end
+    raw = _ref([0.5] * 20)[:-1]
+    with pytest.raises(ValueError):
+        unpackb(raw)
+
+
+def test_default_hook_as_msgpack():
+    v = {"vector": np.arange(20, dtype=np.float32), "ids": [np.arange(3)]}
+    want = msgpack.packb(v, use_bin_type=True, default=lambda o: o.tolist())
+    assert packb(v, default=lambda o: o.tolist()) == want
+    with pytest.raises(TypeError):
+        packb(v)
+    with pytest.raises(TypeError):
+        packb({1, 2}, default=lambda o: o)   # the hook hands back what it refused
+
+
+def test_msgpack_keywords():
+    assert packb([1.5], use_bin_type=True) == _ref([1.5])
+    assert unpackb(_ref([1.5]), raw=False) == [1.5]
+    with pytest.raises(ValueError):
+        packb(b"x", use_bin_type=False)
+    with pytest.raises(ValueError):
+        unpackb(_ref("x"), raw=True)

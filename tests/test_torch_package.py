@@ -27,12 +27,19 @@ COPIES = [
     "engine/performance.py", "engine/planner.py", "services/__init__.py",
     "services/concurrent.py", "services/enterprise.py", "services/resilience.py",
     "embedded.py", "server/__init__.py", "server/proto/__init__.py",
-    "server/proto/vector_db_pb2.py", "server/proto/vector_db.proto", "server/rest.py",
-    "bench/__init__.py",
+    "server/proto/vector_db_pb2.py", "server/proto/vector_db.proto",
+    "bench/__init__.py", "distributed/__init__.py", "distributed/types.py",
+    "distributed/transport.py", "distributed/replication.py", "distributed/failover.py",
+    "distributed/load_balancer.py", "distributed/request_router.py",
+    "testing/__init__.py", "testing/chaos.py", "testing/certs.py",
 ]
-# modules copied with some definitions changed: functions by name or
-# ``Class.method``, a top-level import by its text, ``__doc__`` for the
-# module docstring
+# the port's msgpack codec in place of the msgpack package, under its name
+CODEC = "import msgpack -> from grape_vector_db_tpu_torch.storage import msgpack_codec as msgpack"
+# modules copied with some definitions changed: functions by name or by
+# their qualified name (``Class.method``, ``Class.method.Nested.method``), a
+# top-level import by its text, ``__doc__`` for the module docstring;
+# ``"a -> b"`` names a top-level import ``a`` of the original that the port
+# replaces by ``b``, and ``"+name"`` a function or import only the port has
 CHANGED = [
     ("services/metrics.py", ["record_hbm"]),
     ("services/embeddings.py", ["create_provider"]),
@@ -43,6 +50,18 @@ CHANGED = [
                 "cmd_simple_performance_test", "cmd_concurrent_insert_test",
                 "cmd_storage_analysis", "cmd_fusion_benchmark", "cmd_serve", "cmd_tune",
                 "main"]),
+    ("server/rest.py", ["RestServer.__init__.Handler.do_GET"]),
+    ("distributed/shard.py", [
+        "import xxhash -> from grape_vector_db_tpu_torch.utils.xxh64 import xxh64_intdigest",
+        "hash_key"]),
+    ("distributed/raft.py", [CODEC]),
+    ("distributed/cluster.py", [CODEC, "+import torch", "ClusterNode.__init__"]),
+    ("distributed/cluster_service.py", ["+import torch", "ClusterService.__init__",
+                                        "ClusterService.add_node"]),
+    ("server/cluster_adapter.py", [CODEC, "+import numpy as np", "+_wire_default",
+                                   "GrpcClusterAdapter.handle_internal", "GrpcTransport.call"]),
+    ("testing/cluster.py", ["RaftTestCluster._make_node.snapshot_fn",
+                            "RaftTestCluster._make_node.restore_fn"]),
 ]
 
 
@@ -112,49 +131,70 @@ def test_copied_module_matches_jax_original(rel):
         "the module into a shared JAX-free package")
 
 
-def _definitions(src: str, names) -> dict:
+def _definitions(src: str, names, port: bool) -> dict:
     """name -> AST node, for each of ``names`` that ``src`` defines (see
-    CHANGED). A bare function name must name one function, at any depth."""
+    CHANGED), read as the port's (``port``) or the original's side. A bare
+    function name must name one function, at any depth."""
     tree = ast.parse(src)
     found = {}
     if "__doc__" in names and ast.get_docstring(tree) is not None:
         found["__doc__"] = tree.body[0]
     funcs = []   # (qualified name, node)
+    imports = {}  # text -> node, top level only
 
     def visit(body, prefix):
         for node in body:
             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 funcs.append((prefix + node.name, node))
+                visit(node.body, prefix + node.name + ".")
             elif isinstance(node, ast.ClassDef):
                 visit(node.body, prefix + node.name + ".")
             elif isinstance(node, (ast.Import, ast.ImportFrom)) and not prefix:
-                if ast.unparse(node) in names:
-                    found[ast.unparse(node)] = node
+                imports[ast.unparse(node)] = node
 
     visit(tree.body, "")
     for name in names:
-        hits = [n for q, n in funcs if q == name or ("." not in name and q.endswith("." + name))]
-        assert len(hits) <= 1, f"{name} names {len(hits)} functions: qualify it by its class"
+        if name.startswith("+"):
+            if not port:
+                continue
+            key = name[1:]
+        else:
+            parts = name.split(" -> ")
+            key = parts[-1] if port else parts[0]
+        if key in imports:
+            found[name] = imports[key]
+            continue
+        hits = [n for q, n in funcs if q == key or ("." not in key and q.endswith("." + key))]
+        assert len(hits) <= 1, f"{key} names {len(hits)} functions: qualify it by its class"
         if hits:
             found[name] = hits[0]
     return found
 
 
-def _without(src: str, nodes) -> str:
-    """``src`` with the lines of ``nodes`` cut out."""
+def _without(src: str, nodes, added=()) -> str:
+    """``src`` with the lines of ``nodes`` cut out, and for the ``added``
+    ones (only the port has them) the blank lines before them too."""
+    lines = src.splitlines()
     cut = set()
     for node in nodes:
         first = min([node.lineno] + [d.lineno for d in getattr(node, "decorator_list", [])])
         cut.update(range(first - 1, node.end_lineno))
-    return "\n".join(line for i, line in enumerate(src.splitlines()) if i not in cut)
+        while node in added and first >= 2 and not lines[first - 2].strip():
+            first -= 1
+            cut.add(first - 1)
+    return "\n".join(line for i, line in enumerate(lines) if i not in cut)
 
 
 @pytest.mark.parametrize("rel,names", CHANGED, ids=["-".join([r, *n]) for r, n in CHANGED])
 def test_changed_module_matches_outside_its_function(rel, names):
     port, ref = _read_port(rel), _renamed(rel)
-    in_ref, in_port = _definitions(ref, names), _definitions(port, names)
-    assert set(in_ref) == set(names), f"{rel}: the original lacks {set(names) - set(in_ref)}"
-    assert _without(port, in_port.values()) == _without(ref, in_ref.values())
+    in_ref, in_port = _definitions(ref, names, False), _definitions(port, names, True)
+    shared = {n for n in names if not n.startswith("+")}
+    assert set(in_ref) == shared, f"{rel}: the original lacks {shared - set(in_ref)}"
+    added = {n for n in names if n.startswith("+") or " -> " in n}
+    assert added <= set(in_port), f"{rel}: the port lacks {added - set(in_port)}"
+    port_only = [node for name, node in in_port.items() if name.startswith("+")]
+    assert _without(port, in_port.values(), port_only) == _without(ref, in_ref.values())
     for name, node in in_port.items():
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             assert "jax" not in ast.get_source_segment(port, node), f"{rel} {name}"

@@ -34,7 +34,6 @@ import grape_vector_db_tpu_torch as torch_pkg
 from grape_vector_db_tpu.server import grpc_server as jax_grpc
 from grape_vector_db_tpu.server import rest as jax_rest
 from grape_vector_db_tpu.server.proto import vector_db_pb2 as jax_pb
-from grape_vector_db_tpu_torch.errors import InvalidArgumentError
 from grape_vector_db_tpu_torch.server import grpc_server as tgrpc
 from grape_vector_db_tpu_torch.server import rest as trest
 from grape_vector_db_tpu_torch.server.proto import vector_db_pb2 as pb
@@ -302,6 +301,15 @@ def test_grpc_error_paths_match_jax(both):
 # -- REST: every route, the same requests to both servers --------------------------------
 
 
+def _assert_is_stored(body, doc):
+    """A GET /api/v1/documents/<id> body against the stored document."""
+    want = doc.to_dict()
+    vec = np.asarray(want.pop("vector"), np.float32)
+    got_vec = np.asarray(body.pop("vector"), np.float32)
+    assert got_vec.shape == vec.shape and np.array_equal(got_vec, vec)
+    assert body == json.loads(json.dumps(want))
+
+
 def test_rest_routes_match_jax(both):
     vecs = corpus()
     pts = [{"id": f"r{i}", "vector": vecs[i].tolist(),
@@ -327,10 +335,13 @@ def test_rest_routes_match_jax(both):
         {"id": "doc-c", "content": "tpu pods and pasta", "metadata": {"odd": True}}]})
     assert code == 200 and a == b == {"ids": ["doc-b", "doc-c"]}
 
-    # GET /api/v1/documents/doc-a answers 500 in both packages: the
-    # embedder's vector is an ndarray, which the route's json.dumps refuses
-    # (ROADMAP C.4); each() still holds the two to one status
-    each("GET", "/api/v1/documents/doc-a")
+    # GET /api/v1/documents/doc-a: the embedder's vector is an ndarray. The
+    # port's route answers with the stored document; the reference's
+    # json.dumps refuses it and answers 500 (ROADMAP C.4, fixed in the port)
+    code, a = _req("GET", both["torch"].base + "/api/v1/documents/doc-a")
+    assert code == 200
+    _assert_is_stored(a, both["torch"].db.get_document("doc-a"))
+    assert _req("GET", both["jax"].base + "/api/v1/documents/doc-a")[0] == 500
     for path in ("/api/v1/vectors/r7", "/api/v1/vectors/zzz", "/api/v1/documents/doc-v",
                  "/api/v1/documents/zzz"):
         (code, a), (_, b) = each("GET", path)
@@ -389,6 +400,31 @@ def test_rest_routes_match_jax(both):
                          ("DELETE", "/nope")):
         (code, a), (_, b) = each(method, path, {} if method == "POST" else None)
         assert code == 404 and a == b
+
+
+def test_rest_document_route_answers_store_decoded_vector(tmp_path):
+    """ROADMAP C.4 for a store-decoded document: after a reopen the file
+    store hands the record's vector back as an ndarray, and the route answers
+    with the stored document."""
+    cfg = torch_pkg.VectorDbConfig(vector_dimension=DIM)
+    vec = corpus(1)[0]
+    db = torch_pkg.VectorDatabase(path=str(tmp_path / "db"), config=cfg, device="cpu")
+    db.batch_add_documents([torch_pkg.Document(id="kept", content="from disk",
+                                               vector=vec.tolist(), metadata={"n": 1})])
+    db.close()
+    db = torch_pkg.VectorDatabase(path=str(tmp_path / "db"), config=cfg, device="cpu")
+    rest = trest.RestServer(db, port=0)
+    host, port = rest.start()
+    try:
+        doc = db.get_document("kept")
+        assert isinstance(doc.vector, np.ndarray)
+        code, body = _req("GET", f"http://{host}:{port}/api/v1/documents/kept")
+        assert code == 200
+        np.testing.assert_array_equal(np.asarray(body["vector"], np.float32), vec)
+        _assert_is_stored(body, doc)
+    finally:
+        rest.stop()
+        db.close()
 
 
 # -- tests/test_server.py's cases through the port ----------------------------------------
@@ -461,7 +497,7 @@ def test_grpc_api_key_enforcement():
 
 @pytest.fixture(scope="module")
 def certs(tmp_path_factory):
-    from grape_vector_db_tpu.testing.certs import make_test_certs
+    from grape_vector_db_tpu_torch.testing.certs import make_test_certs
 
     return make_test_certs(str(tmp_path_factory.mktemp("certs")), with_client=True)
 
@@ -651,8 +687,20 @@ def test_serve_subprocess_end_to_end(tmp_path):
 @pytest.mark.parametrize("flags", [["--node-id", "n1", "--peers", "n1=127.0.0.1:1"],
                                    ["--peers", "n1=127.0.0.1:1"],
                                    ["--shard-count", "16"], ["--replica-count", "1"]])
-def test_serve_cluster_mode_raises(flags):
-    from grape_vector_db_tpu_torch.cli import main
+def test_serve_cluster_mode_raises(flags, monkeypatch):
+    """The cluster-mode flags no longer raise (they did until the distributed
+    tier was ported): ``serve`` parses them as the reference's CLI does, with
+    its defaults (16 shards, 2 replicas), and hands them to ``cmd_serve``."""
+    from grape_vector_db_tpu import cli as jax_cli
+    from grape_vector_db_tpu_torch import cli as torch_cli
 
-    with pytest.raises(InvalidArgumentError, match="A.9"):
-        main(["serve", "--device", "cpu", "--grpc-port", "0", "--rest-port", "0", *flags])
+    seen = {}
+    for name, mod in (("jax", jax_cli), ("torch", torch_cli)):
+        monkeypatch.setattr(mod, "cmd_serve", lambda args, name=name: seen.setdefault(
+            name, vars(args)))
+        mod.main(["serve", "--grpc-port", "0", "--rest-port", "0", *flags])
+    assert seen["torch"].pop("device") == "cuda"
+    assert {k: v for k, v in seen["torch"].items() if k != "fn"} == {
+        k: v for k, v in seen["jax"].items() if k != "fn"}
+    assert seen["torch"]["shard_count"] == 16
+    assert seen["torch"]["replica_count"] == (1 if "--replica-count" in flags else 2)
