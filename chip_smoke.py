@@ -32,13 +32,14 @@ the port's paths through ``VectorDatabase`` on the card:
   copies on mbarriers, for B5 one block a group) through ingest, search before and after
   ``optimize()``, filtered search on both planner routes, the streaming
   exhaustive tier, deletes and search again, each against numpy oracles;
-- the binary kind at 1,048,576 x 768 on the flat path's Gaussian corpus:
+- the binary kind at 524,288 x 768, the first half of the flat path's
+  Gaussian corpus (a cut of scale from 1,048,576, for the limit):
   ``VectorDatabase(kind="binary")`` with its defaults (asym prescan) and a
   ``BinaryDeviceIndex(hamming_impl="popcount", prescan="hamming")``, whose
   prescan runs B6 (``csrc/hamming.cu``, on the b1 tensor cores), with
   Hamming-only search, the codes-only configuration, a filtered search and
   deletes;
-- the kernel-free kinds at 262,144 rows each (a cut of scale, for the time
+- the kernel-free kinds at 131,072 rows each (a cut of scale, for the time
   limit): ``int8`` and ``pq`` on the Gaussian corpus, ``ivf_pq`` with each
   resident plane on the clustered IVF corpus (nlist 1024), and the projected
   ``ivf_int8_proj`` / ``ivf_int4_proj`` (R = 384, B4/B5) on a low-rank
@@ -66,15 +67,16 @@ the port's paths through ``VectorDatabase`` on the card:
   trace must name ``segmax_max_kernel``; then B1 and B2 against their plain
   versions on the served plane at the batcher's largest batch (64);
 - the CLI: ``python3 -m grape_vector_db_tpu_torch.cli serve`` as a
-  subprocess on the default device, 65,536 x 768 rows over gRPC, searches
+  subprocess on the default device, 16,384 x 768 rows over gRPC, searches
   against the numpy oracle, its /metrics' device memory, an interrupt; then
   every other subcommand in process at its defaults (their JSON keys held
   to the JAX CLI's) and ``tune`` on the served data directory;
 - the embedded deployment at the default configuration: ``EmbeddedVectorDB``
   over a file store in a temporary directory with the device hash embedder
   (``embedding.provider = "device"``: 32,768 buckets, the JAX package's
-  projection, checked on 4,096 entries against the numpy stream), 131,072
-  synthetic text documents ingested through ``add_documents_pipelined`` on
+  projection, checked on 4,096 entries against the numpy stream), 73,728
+  synthetic text documents (a cut from 131,072, for the limit; the index
+  grows to 131,072 rows) ingested through ``add_documents_pipelined`` on
   the device-direct path, the stored rows and the card's embeddings against
   the CPU port's, ``search_documents``, single queries from 32 threads through
   the batching executor, the B = 256 batch through B1 against the oracle over
@@ -84,16 +86,35 @@ the port's paths through ``VectorDatabase`` on the card:
 - the distributed tier: a ``ClusterService`` of 3 nodes, 16 shards, RF = 2
   (the reference CLI's ``serve`` defaults on the 3-node minimum its README
   names) over the default flat index at D = 768, every node's index on the
-  card: 1,048,576 documents upserted with a session token (each node holds
+  card: 458,752 documents upserted with a session token (each node holds
   ~2/3 of them, so every shard-local leg runs B1 or B2), session searches
   from 32 threads through all three coordinators at k = 10 and 3,
   ``search_batch`` at B = 64, 1,024 deletes, node-3 failed (searches through
   node-1 stay exact) and recovered, each answer against the numpy oracle
   over the live documents, then B1 and B2 against their plain versions on
   node-1's plane; and three ``cli serve --node-id --peers`` processes on
-  the card over gRPC: 16,384 rows (a cut of scale from 65,536, for the
+  the card over gRPC: 8,192 rows (a cut of scale from 65,536, for the
   phase's budget) upserted at one, searched at another, one killed,
-  searched at the third.
+  searched at the third;
+- the sharded kinds (``grape_vector_db_tpu_torch.parallel``: one process
+  driving a mesh whose entries are all the one card): ``sharded_flat`` at
+  the default configuration with ``device.n_shards = 4`` over 2,097,152
+  seeded Gaussian documents (4 shards of 524,288 rows, so every shard's
+  search runs B1 at k = 10 and B2 at k = 3), a 10% filter, 1,024 deletes and
+  ``redistribute`` onto 2 shards, each answer against the numpy oracle; the
+  sharded call's device span beside ``scored_topk`` on the same plane
+  unsharded; a 2-D mesh (2 replica rows x 2 shards of 524,288) over the
+  first 1,048,576 rows, its batch split 64 to a row, equal to the same
+  shards searched 1-D; ``sharded_ivf`` / ``_int8`` / ``_int4`` over 4
+  shards on the first 524,288 rows of each IVF kind's corpus (a cut for
+  the phase's budget and the limit) right after the kind's own
+  phase, first
+  with its centroids (the same lists, its deletes: the same answers, the
+  quantized kinds at least as good rank for rank), then ``optimize()``,
+  search, both exact filter tiers, deletes, each against the numpy oracles,
+  every probe running B3 / B4 / B5 once a shard; ``sharded_ivf_int8_proj``
+  on the low-rank corpus (B4 at D = 384 on each shard); B1, B2 and B3-B5
+  held against their plain versions on shard 0's own planes.
 
 B3, B4 and B5 are timed beside their nearest library composition (the probed
 lists' rows gathered, B4's codes cast and B5's nibbles unpacked to bf16,
@@ -112,10 +133,14 @@ the line before the last is a JSON object with one entry per kernel (B1's
 entry carries its launches on the flat, server, embedded and cluster paths,
 split under "launches_by_path", its check and times on the served plane
 under "server", on the embedded index's plane under "embedded" and on a
-cluster node's plane under "cluster"; B2's its launches on the flat, server
-and cluster paths and its served-plane and cluster-plane figures; B4/B5's entries carry their launches on the IVF path; the projected path's own run
+cluster node's plane under "cluster", and on a shard's plane of the sharded
+path under "sharded"; B2's its launches on the flat, server, cluster and
+sharded paths and its served-plane, cluster-plane and shard-plane figures;
+B3/B4/B5's entries carry their launches on the IVF and sharded paths (and
+the sharded projected path's, B4) under "launches_by_path" and their check
+on shard 0's lists under "sharded"; the projected path's own run
 at D = 384 sits under their "d384" key; B4/B5's grouping pass has its own
-entry, "ivf_group", whose launches are both paths' with the split under
+entry, "ivf_group", whose launches are all those paths' with the split under
 "launches_by_path"; B11 has one entry for the graph
 search, with its entry step's shape under "entry", one for the build,
 "gather_dots@build", and one for the build's grouping pass, "gather_group");
@@ -156,11 +181,14 @@ NPROBE = 16               # the config default (config.py IndexConfig.nprobe)
 # the quantized kinds: the same corpus unless the run needs the time
 QUANT_ROWS = 1 << 20
 QUANT_NLIST = 4096
-# the binary kind: the flat path's corpus at full size
-BINARY_ROWS = N_ROWS
+# the binary kind: the first half of the flat path's corpus, a cut of scale
+# from 1,048,576 to make room in the limit for the sharded phase (B6's
+# 262,144-row chunk, its main shape, is kept)
+BINARY_ROWS = N_ROWS // 2
 HAMMING_CHECK_QUERIES = 16   # queries the numpy xor/popcount oracle checks
-# the kernel-free kinds: cut to 262,144 rows each for the time limit
-SMALL_ROWS = 1 << 18
+# the kernel-free kinds: cut to 262,144 rows each for the time limit, then to
+# 131,072 to make room in the limit for the sharded phase
+SMALL_ROWS = 1 << 17
 HAMMING_ROWS = 262_144    # B6's main shape: one scan chunk of the binary index
 IVFPQ_NLIST = 1024
 PROJ_DIM = 384
@@ -172,9 +200,10 @@ LOWRANK_NOISE = 0.02      # full-space noise
 # phase took 276.5 s of its 240 s share of the limit on an H100)
 GRAPH_ROWS = 1 << 17
 GRAPH_BUDGET_S = 240.0
-# the embedded deployment: the graph phase's size, a desktop or
-# single-service corpus; at 131,072 rows a batch larger than 128 takes B1
-EMBED_DOCS = 1 << 17
+# the embedded deployment: a desktop or single-service corpus, cut from
+# 131,072 to make room in the limit for the sharded phase; the index still
+# grows to a capacity of 131,072, where a batch larger than 128 takes B1
+EMBED_DOCS = 9 << 13
 EMBED_VOCAB = 20_000
 EMBED_BATCH = 256
 EMBED_BUDGET_S = 240.0
@@ -1746,8 +1775,11 @@ def ivf_path(kind: str, corpus: Clustered, nlist: int):
         f"{rows / ingest_s:.0f} docs/s; optimize {optimize_s:.2f} s")
     stats = probe_main_shapes(kind, idx, corpus)
     search_breakdown(kind, idx, corpus, med, stats["ms"])
-    db.close()
-    return launches, stats
+    # what the sharded twin of this kind is held to (sharded_ivf_part, which
+    # closes the database)
+    handoff = {"db": db, "centroids": idx.centroids.clone(), "list_cap": idx.list_cap,
+               "doomed": doomed, "after": after}
+    return launches, stats, handoff
 
 
 # -- the binary kind ----------------------------------------------------------------
@@ -1836,14 +1868,15 @@ def numpy_hamming_top(x: np.ndarray, queries: np.ndarray, k: int, alive: np.ndar
 
 
 def binary_path():
-    """The binary kind at 1,048,576 x 768 on the flat path's Gaussian corpus."""
+    """The binary kind at BINARY_ROWS x 768 of the flat path's Gaussian corpus."""
     from grape_vector_db_tpu_torch import (Condition, Document, Filter, SearchRequest,
                                            VectorDatabase, VectorDbConfig)
     from grape_vector_db_tpu_torch.index import BinaryDeviceIndex
     from grape_vector_db_tpu_torch.ops.hamming import hamming_topk, pack_bits
 
     rows = BINARY_ROWS
-    x = np.concatenate([b for _, b in corpus_batches()])[:rows]
+    batches = rows // INGEST_BATCH
+    x = np.concatenate([b for _, b in itertools.islice(corpus_batches(), batches)])
     group = np.arange(rows) % 10
     rng = np.random.default_rng(SEED + 5)
     near = rng.choice(rows, BATCH // 2, replace=False)
@@ -1905,7 +1938,8 @@ def binary_path():
     require(launches["hamming"] > 0, "the binary popcount path never launched hamming")
 
     # oracles
-    (o_vals, o_ids), (f_vals, f_ids) = oracle(corpus_batches(), queries, lambda rr: rr % 10)
+    (o_vals, o_ids), (f_vals, f_ids) = oracle(itertools.islice(corpus_batches(), batches),
+                                              queries, lambda rr: rr % 10)
     alive = np.ones(rows, bool)
     k_asym = prescan_keys("asym", queries, x, alive)
     check_candidates("asym two-stage", asym_hits, k_asym, "asym", r)
@@ -1973,7 +2007,7 @@ def binary_path():
     return launches["hamming"]
 
 
-# -- the kernel-free kinds at 262,144 rows -------------------------------------------
+# -- the kernel-free kinds at SMALL_ROWS rows ------------------------------------------
 
 
 class SmallCorpus:
@@ -2117,7 +2151,10 @@ SMALL_KINDS = [
 ]
 
 
-def small_kind_path(label, kind, corpus, updates, kname):
+def small_kind_path(label, kind, corpus, updates, kname, n_shards=None):
+    """One kind on its small corpus. ``n_shards`` runs a sharded kind over a
+    mesh of that many entries of the card: its search must launch ``kname``
+    once a shard, and the shard-plane checks are the sharded phase's."""
     from grape_vector_db_tpu_torch import Document, VectorDatabase, VectorDbConfig
 
     cfg = VectorDbConfig(vector_dimension=DIM)
@@ -2125,6 +2162,7 @@ def small_kind_path(label, kind, corpus, updates, kname):
     cfg.index.nlist = IVFPQ_NLIST
     cfg.index.nprobe = NPROBE
     cfg.index.proj_dim = PROJ_DIM
+    cfg.device.n_shards = n_shards
     for key, val in updates.items():
         setattr(cfg.index, key, val)
     db = VectorDatabase(config=cfg, device=DEV)
@@ -2149,6 +2187,10 @@ def small_kind_path(label, kind, corpus, updates, kname):
     if kind.endswith("_proj"):
         extra = f", retained energy {idx.proj_energy:.4f}"
         require(launches[kname] > 0, f"{label}: the path never launched {kname}")
+        if n_shards:
+            require(launches[kname] == n_shards and idx.n_shards == n_shards,
+                    f"{label}: {launches[kname]} launches of {kname} for one search over "
+                    f"{idx.n_shards} shards")
         require(launches["ivf_group"] == launches[kname],
                 f"{label}: the path's probes and grouping passes differ in number")
     log(f"[{label}] {corpus.rows} rows ({corpus.name} corpus; cut from 1M for the time "
@@ -2158,7 +2200,7 @@ def small_kind_path(label, kind, corpus, updates, kname):
     log(f"[times] {label} vector_search_batch B={BATCH} k=10: median {med * 1e3:.3f} ms of 20 "
         f"({BATCH / med:.0f} queries/s)")
     stats = None
-    if kname is not None:
+    if kname is not None and not n_shards:
         stats = proj_probe_shapes(kname, idx, corpus)
     db.close()
     return launches, stats
@@ -2205,6 +2247,400 @@ def proj_probe_shapes(name, idx, corpus):
     extra, stats["group"] = grouped_details(name, qp, probe, data, w, nb, f"D={PROJ_DIM}")
     stats.update(extra)
     return stats
+
+
+# -- the sharded kinds: one process over a mesh of the card ---------------------------
+
+SHARDED_BUDGET_S = 240.0
+SHARDED_SHARDS = 4
+SHARDED_ROWS = 1 << 21        # 4 shards of 524,288 rows: every shard's search runs B1 / B2
+SHARDED_2D_ROWS = 1 << 20     # 2 replica rows x 2 shards of 524,288
+# the sharded IVF runs take the first 524,288 rows of the IVF corpus (nlist
+# and nprobe as the single card's): for the int8 / int4 runs the first cut
+# for the phase's budget (uncut, the phase took 316.0 s of its 240 s on an
+# H100), for the bf16 run one for the script's limit (the whole smoke took
+# 1,125-1,145 s of its 1,200 on an H100 with the bf16 run at 1,048,576 rows)
+SHARDED_IVF_ROWS = 1 << 19
+SHARDED_SECONDS = {}          # part of the phase -> its seconds
+
+
+class ShardPlanes:
+    """Shard ``s``'s own planes of a sharded index, where the plane checks
+    read an index's (``vectors``, ``norms``, ``valid`` of the flat kind;
+    ``vecs``, ``recip``, ``codes``, ``factor``, the centroids and the
+    per-shard ``_nblocks()`` of the IVF kinds)."""
+
+    def __init__(self, idx, s: int = 0):
+        for name in ("vectors", "norms", "valid", "vecs", "recip", "codes", "factor"):
+            t = getattr(idx, name, None)
+            setattr(self, name, None if t is None else t.part(s))
+        self.centroids = getattr(idx, "centroids", None)
+        self._nb = idx._nblocks() if hasattr(idx, "_nblocks") else None
+
+    def _nblocks(self):
+        return self._nb
+
+
+def card_mesh_check(idx, n_shards):
+    devs = list(idx.mesh.devices.flat)
+    require(idx.n_shards == n_shards and all(d == devs[0] for d in devs)
+            and devs[0].type == torch.device(DEV).type,
+            f"{idx.kind}: mesh {idx.mesh} is not {n_shards} shards of the card")
+
+
+def same_answers(name, got, want):
+    """Two engines' (row, score) lists: ids as sets with the near-tie guard,
+    scores within TOL."""
+    for r, (a, b) in enumerate(zip(got, want)):
+        ga, gb = dict(a), dict(b)
+        require(len(a) == len(b) == len(ga) == len(gb), f"{name} q{r}: {len(a)} vs {len(b)} hits")
+        kth = min(gb.values())
+        for i in set(ga) ^ set(gb):
+            sc = ga.get(i, gb.get(i))
+            require(abs(sc - kth) <= TOL, f"{name} q{r}: id {i} (score {sc}) differs away "
+                    f"from the k-th score {kth}")
+        for i in set(ga) & set(gb):
+            require(abs(ga[i] - gb[i]) <= TOL, f"{name} q{r}: score of {i} {ga[i]} vs {gb[i]}")
+
+
+def sharded_flat_part():
+    """``sharded_flat`` at SHARDED_ROWS x 768 over 4 shards of the card
+    through ``VectorDatabase``: ingest, k = 10 and k = 3, a 10% filter,
+    deletes, ``redistribute`` onto 2 shards; then the 2-D mesh (2 replica
+    rows x 2 shards) over the first SHARDED_2D_ROWS rows. Returns (launches
+    by kernel, the shard-plane checks of B1 and B2)."""
+    from grape_vector_db_tpu_torch import (Condition, Document, Filter, SearchRequest,
+                                           VectorDatabase, VectorDbConfig)
+    from grape_vector_db_tpu_torch.ops.distance import scored_topk
+    from grape_vector_db_tpu_torch.parallel import (make_mesh, replicated_sharded_topk,
+                                                    sharded_scored_topk)
+
+    t_part = time.perf_counter()
+    rows = SHARDED_ROWS
+    # Gaussian rows from a seeded generator on the device (numpy's takes ~10 s)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    x = np.empty((rows, DIM), np.float32)
+    for s in range(0, rows, 65536):
+        x[s:s + 65536] = torch.randn((min(65536, rows - s), DIM), generator=gen,
+                                     device=DEV).cpu().numpy()
+    rng = np.random.default_rng(SEED + 16)
+    # half the queries lie near stored documents (of the 2-D part's rows too)
+    near = rng.choice(SHARDED_2D_ROWS, BATCH // 2, replace=False)
+    queries = np.concatenate([x[near] + 0.5 * rng.standard_normal((BATCH // 2, DIM),
+                                                                   dtype=np.float32),
+                              rng.standard_normal((BATCH // 2, DIM), dtype=np.float32)])
+
+    def group_of(r):
+        return r % 10
+
+    cfg = VectorDbConfig(vector_dimension=DIM)
+    cfg.index.kind = "sharded_flat"
+    cfg.index.initial_capacity = rows
+    cfg.device.n_shards = SHARDED_SHARDS
+    db = VectorDatabase(config=cfg, device=DEV)
+    idx = db.index
+    card_mesh_check(idx, SHARDED_SHARDS)
+    require(idx.shard_capacity == rows // SHARDED_SHARDS,
+            f"shard capacity {idx.shard_capacity}, wanted {rows // SHARDED_SHARDS}")
+    log(f"[sharded] sharded_flat: {idx.n_shards} shards of {idx.shard_capacity} rows, all on "
+        f"{idx.device}, metric {idx.metric}, storage {idx.storage_dtype}")
+    ingest_s = 0.0
+    for start in range(0, rows, INGEST_BATCH):
+        xb = x[start:start + INGEST_BATCH]
+        docs = [Document(id=f"doc{start + i}", content=f"doc {(start + i) % 997}",
+                         vector=xb[i], metadata={"g": int(group_of(start + i))})
+                for i in range(len(xb))]
+        t0 = time.perf_counter()
+        db.batch_add_documents(docs)
+        ingest_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    per_shard = [idx.get_stats().extra[f"shard_{i}_points"] for i in range(idx.n_shards)]
+    require(len(idx) == rows and idx.capacity == rows and max(per_shard) == min(per_shard),
+            f"index holds {len(idx)} rows at capacity {idx.capacity}, {per_shard} a shard")
+    log(f"[sharded] sharded_flat ingested {rows} documents in {ingest_s:.2f} s "
+        f"({rows / ingest_s:.0f} docs/s, batches of {INGEST_BATCH}); {per_shard} a shard")
+
+    reset_counts()
+    batch = db.vector_search_batch(queries, 10)
+    c10 = read_counts()
+    require(c10["segmax4"] == SHARDED_SHARDS and c10["segmax2"] == 0,
+            f"a k=10 search over {SHARDED_SHARDS} shards launched {c10['segmax4']} B1, "
+            f"{c10['segmax2']} B2")
+    batch3 = db.vector_search_batch(queries, 3)
+    c3 = read_counts()
+    require(c3["segmax2"] == SHARDED_SHARDS and c3["segmax4"] == c10["segmax4"],
+            f"a k=3 search launched {c3['segmax2'] - c10['segmax2']} B2")
+    filt = Filter(must=[Condition("g", "eq", 3)])
+    filtered = [db.vector_search(SearchRequest(vector=queries[i].tolist(), limit=10,
+                                               filter=filt)) for i in range(4)]
+    doomed = list(dict.fromkeys(int(p.id[3:]) for row in batch for p in row))[:1024]
+    taken = set(doomed)
+    doomed += [i for i in range(rows) if i not in taken][:1024 - len(doomed)]
+    require(db.batch_delete_documents([f"doc{i}" for i in doomed]) == 1024,
+            "sharded_flat: 1024 deletes")
+    after = db.vector_search_batch(queries, 10)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[sharded] sharded_flat searches done: batch B={BATCH} k=10 and k=3, 4 x filtered "
+        f"k=10, deleted 1024, batch again; kernel launches {launches}")
+    require(launches["segmax4"] == SHARDED_SHARDS * (1 + 4 + 1),
+            f"sharded_flat: {launches['segmax4']} B1 launches, wanted one a shard a search")
+
+    t0 = time.perf_counter()
+    (o_vals, o_ids), (f_vals, f_ids) = oracle(
+        ((s, x[s:min(s + 65536, rows)]) for s in range(0, rows, 65536)), queries, group_of)
+    check_hits("sharded batch k=10", batch, o_vals, o_ids, 10)
+    check_hits("sharded batch k=3", batch3, o_vals, o_ids, 3)
+    check_hits("sharded filtered k=10", filtered, f_vals[:4], f_ids[:4], 10)
+    require(all(int(p.id[3:]) % 10 == 3 for row in filtered for p in row),
+            "a sharded filtered result broke the filter")
+    gone = frozenset(doomed)
+    check_hits("sharded after delete k=10", after, o_vals, o_ids, 10, exclude=gone)
+    top1 = sum(int(batch[i][0].id[3:]) == int(near[i]) for i in range(BATCH // 2))
+    log(f"[sharded] sharded_flat answers agree with the numpy oracle (f32 cosine over the "
+        f"bf16-rounded corpus, tolerance {TOL}; oracle {time.perf_counter() - t0:.1f} s); "
+        f"near-document queries found their document first {top1}/{BATCH // 2}")
+
+    med = timed(lambda: db.vector_search_batch(queries, 10))
+    qt = torch.from_numpy(queries).to(DEV)
+    chunk = min(idx.search_chunk, idx.shard_capacity)
+    sh = lambda: sharded_scored_topk(qt, idx.vectors, idx.norms, idx.valid, 10, "cosine", chunk,
+                                     idx.mesh)
+    whole = [t.to_global(DEV) for t in (idx.vectors, idx.norms, idx.valid)]
+    un = lambda: scored_topk(qt, *whole, 10, chunk=65536)
+    sv, ss = sh()
+    uv, us = un()
+    torch.cuda.synchronize()
+    require(torch.allclose(sv, uv, atol=TOL, rtol=0),
+            "the sharded call and the same call on the whole plane disagree")
+    (u1, u2), (s1, s2) = in_turns(un, sh, 10, 10)
+    del whole
+    log(f"[times] sharded_flat ({CARD}): vector_search_batch B={BATCH} k=10 at {rows - 1024} "
+        f"documents over {SHARDED_SHARDS} shards: median {med * 1e3:.3f} ms of 20 "
+        f"({BATCH / med:.0f} queries/s); ingest {rows / ingest_s:.0f} docs/s")
+    log(f"[times] sharded_flat device span of one call (CUDA events, in turns): "
+        f"sharded_scored_topk over {SHARDED_SHARDS} shards {s1:.3f} / {s2:.3f} ms (four B1 "
+        f"launches in sequence on one stream, then the merge), scored_topk on the same "
+        f"[{rows},{DIM}] plane unsharded {u1:.3f} / {u2:.3f} ms")
+    planes = {name: index_plane_check("sharded shard 0", name, ShardPlanes(idx, 0), queries)
+              for name in ("segmax4", "segmax2")}
+
+    # the same corpus on 2 shards of 1,048,576 (a node leaves)
+    t0 = time.perf_counter()
+    idx.redistribute(make_mesh(2, devices=[torch.device(DEV)]), shard_capacity=rows // 2)
+    torch.cuda.synchronize()
+    red_s = time.perf_counter() - t0
+    card_mesh_check(idx, 2)
+    reset_counts()
+    moved = db.vector_search_batch(queries, 10)
+    c = read_counts()
+    require(c["segmax4"] == 2, f"the 2-shard search launched {c['segmax4']} B1")
+    check_hits("redistributed k=10", moved, o_vals, o_ids, 10, exclude=gone)
+    launches["segmax4"] += c["segmax4"]
+    log(f"[sharded] redistribute onto 2 shards of {rows // 2}: {red_s:.2f} s; "
+        f"{len(idx)} rows; the search is exact against the oracle")
+    db.close()
+    del db, idx
+    torch.cuda.empty_cache()
+    SHARDED_SECONDS["flat 1-D"] = time.perf_counter() - t_part
+
+    # -- 2-D: 2 replica rows x 2 shards; the batch splits 64 to a row
+    t_part = time.perf_counter()
+    rows2 = SHARDED_2D_ROWS
+    cfg = VectorDbConfig(vector_dimension=DIM)
+    cfg.index.kind = "sharded_flat"
+    cfg.index.initial_capacity = rows2
+    cfg.device.n_shards, cfg.device.n_replicas = 2, 2
+    db = VectorDatabase(config=cfg, device=DEV)
+    idx = db.index
+    require(idx.replica_axis == "replica" and idx.n_replicas == 2 and idx.n_shards == 2
+            and idx.shard_capacity == rows2 // 2, f"2-D mesh {idx.mesh}")
+    t0 = time.perf_counter()
+    idx.add_batch([f"doc{i}" for i in range(rows2)], x[:rows2])   # the index directly
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    reset_counts()
+    two = db.vector_search_batch(queries, 10)
+    c = read_counts()
+    require(c["segmax4"] == 4, f"the 2-D search launched {c['segmax4']} B1 (2 rows x 2 shards)")
+    launches["segmax4"] += c["segmax4"]
+    (p_vals, p_ids), _ = oracle(((s, x[s:min(s + 65536, rows2)])
+                                 for s in range(0, rows2, 65536)), queries, group_of)
+    check_hits("2-D k=10", two, p_vals, p_ids, 10)
+    one_v, one_s = sharded_scored_topk(qt, idx.vectors, idx.norms, idx.valid, 10, "cosine",
+                                       chunk, idx.mesh)
+    two_v, two_s = replicated_sharded_topk(qt, idx.vectors, idx.norms, idx.valid, 10, "cosine",
+                                           chunk, idx.mesh)
+    same_answers("2-D against 1-D", [list(zip(a.tolist(), b.tolist())) for a, b in
+                                     zip(two_s.cpu(), two_v.cpu())],
+                 [list(zip(a.tolist(), b.tolist())) for a, b in zip(one_s.cpu(), one_v.cpu())])
+    med2 = timed(lambda: db.vector_search_batch(queries, 10))
+    log(f"[sharded] 2-D sharded_flat: 2 replica rows x 2 shards of {rows2 // 2} on the card; "
+        f"{rows2} rows by index.add_batch in {add_s:.2f} s; B={BATCH} splits {BATCH // 2} to "
+        f"a row; exact against the oracle over its rows, and equal to the same shards "
+        f"searched 1-D")
+    log(f"[times] 2-D sharded_flat ({CARD}): vector_search_batch B={BATCH} k=10: median "
+        f"{med2 * 1e3:.3f} ms of 20 ({BATCH / med2:.0f} queries/s)")
+    db.close()
+    del db, idx, x
+    torch.cuda.empty_cache()
+    SHARDED_SECONDS["flat 2-D"] = time.perf_counter() - t_part
+    return ({"segmax4": launches["segmax4"], "segmax2": launches["segmax2"]}, planes)
+
+
+def sharded_ivf_part(kind: str, corpus: "Clustered", nlist: int, single: dict, rows: int):
+    """``sharded_<kind>`` over 4 shards of the card on the first ``rows`` of
+    the IVF corpus: first with the single-card index's centroids (its lists,
+    its deletes, and where ``rows`` is a cut, the single card's index with
+    the other rows deleted: the same answers), then ``optimize()``, search,
+    filtered search on both exact tiers, deletes and search again against
+    the numpy oracles, as ``ivf_path`` holds the single-card kind. Closes
+    the single card's database. Returns (launches, the probe kernel's check
+    on shard 0's planes)."""
+    from grape_vector_db_tpu_torch import (Condition, Document, Filter, SearchRequest,
+                                           VectorDatabase, VectorDbConfig)
+
+    t_part = time.perf_counter()
+    sdb = single.pop("db")
+    if rows < corpus.rows:     # the single card's index over the same rows
+        sdb.index.remove_batch([f"doc{i}" for i in range(rows, corpus.rows)])
+        single["after"] = to_rows(sdb.vector_search_batch(corpus.queries, 10))
+    sdb.close()
+    del sdb
+    torch.cuda.empty_cache()
+    single_doomed = [i for i in single["doomed"] if i < rows]
+    cfg = VectorDbConfig(vector_dimension=DIM)
+    cfg.index.kind = f"sharded_{kind}"
+    cfg.index.nlist = nlist
+    cfg.index.nprobe = NPROBE
+    # lists as long as the single-card index's, so its centroids place every row
+    cfg.index.initial_capacity = nlist * single["list_cap"]
+    cfg.device.n_shards = SHARDED_SHARDS
+    db = VectorDatabase(config=cfg, device=DEV)
+    idx = db.index
+    card_mesh_check(idx, SHARDED_SHARDS)
+    quant = kind != "ivf"
+    check = check_members if quant else check_exact
+    kname = IVF_KERNEL[kind]
+    group = np.arange(corpus.rows) % 10
+    everyone = list(range(BATCH))
+    tag = f"[sharded_{kind}]"
+    idx.centroids = single["centroids"]
+    reset_counts()
+    ingest_s = 0.0
+    for start in range(0, rows, INGEST_BATCH):
+        xb = corpus.x[start:start + INGEST_BATCH]
+        docs = [Document(id=f"doc{start + i}", content=f"doc {(start + i) % 997}",
+                         vector=xb[i], metadata={"g": int(group[start + i])})
+                for i in range(len(xb))]
+        t0 = time.perf_counter()
+        db.batch_add_documents(docs)
+        ingest_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    require(len(idx) == rows and len(idx._overflow) == 0 and idx.list_cap == single["list_cap"],
+            f"{kind}: {len(idx)} rows, {len(idx._overflow)} in the overflow, list_cap "
+            f"{idx.list_cap}")
+    fill = np.asarray(idx.valid).reshape(idx.nlist, SHARDED_SHARDS, -1).sum(axis=2)
+    require(int((fill.max(axis=1) - fill.min(axis=1)).max()) <= 1,
+            f"{kind}: striped placement left a list's shards uneven")
+    require(db.batch_delete_documents([f"doc{i}" for i in single_doomed]) == len(single_doomed),
+            f"{kind}: the single-card index's deletes")
+    carried = to_rows(db.vector_search_batch(corpus.queries, 10))
+    c = read_counts()
+    require(c[kname] == SHARDED_SHARDS, f"{kind}: {c[kname]} launches of {kname} for one "
+            f"search over {SHARDED_SHARDS} shards")
+    cands = probed_candidates(idx, corpus, everyone)
+    rec_c, n_c = check("carried centroids k=10", carried, corpus, everyone, cands, 10)
+    if quant:
+        # each shard rescores its own top candidates, a superset of the
+        # single card's: rank for rank its scores are at least as high
+        for r, (a, b) in enumerate(zip(carried, single["after"])):
+            sa, sb = sorted((s for _, s in a), reverse=True), sorted((s for _, s in b), reverse=True)
+            require(all(x_ >= y_ - TOL for x_, y_ in zip(sa, sb)),
+                    f"{kind} q{r}: the sharded answer ranks below the single card's")
+        differ = sum({i for i, _ in a} != {i for i, _ in b}
+                     for a, b in zip(carried, single["after"]))
+        same = f"scores rank for rank at least the single card's; {differ} of {BATCH} id sets differ"
+    else:
+        same_answers(f"{kind} against the single card", carried, single["after"])
+        same = "the same answers as the single card"
+    log(f"{tag} {SHARDED_SHARDS} shards of {idx.list_cap // SHARDED_SHARDS} columns a list; "
+        f"ingested {rows} with the single card's centroids in {ingest_s:.2f} s "
+        f"({rows / ingest_s:.0f} docs/s), striped; after its {len(single_doomed)} deletes "
+        f"(and the rows past {rows} deleted from the single card's index): {same}; exact over "
+        f"the probed lists ({n_c} queries checked, recall@10 {rec_c:.4f})")
+
+    t0 = time.perf_counter()
+    db.optimize()
+    torch.cuda.synchronize()
+    optimize_s = time.perf_counter() - t0
+    batch = to_rows(db.vector_search_batch(corpus.queries, 10))
+    f10 = [to_rows([db.vector_search(SearchRequest(
+        vector=corpus.queries[i].tolist(), limit=10,
+        filter=Filter(must=[Condition("g", "eq", 3)])))])[0] for i in range(4)]
+    compact_used = idx._compact_cache is not None
+    idx.compact_max_bytes = 0                      # the streaming tier
+    with idx.locked():
+        mask = idx.compile_mask({f"doc{r}" for r in np.flatnonzero(group == 3)})
+        stream = to_rows(idx.search_batch(corpus.queries, 10, mask=mask, exhaustive=True))
+    del idx.compact_max_bytes
+    post = probed_candidates(idx, corpus, everyone)
+    doomed = list(dict.fromkeys(i for row in batch for i, _ in row))[:1000]
+    require(db.batch_delete_documents([f"doc{i}" for i in doomed]) == len(doomed),
+            f"{kind}: deletes after optimize")
+    after = to_rows(db.vector_search_batch(corpus.queries, 10))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    require(compact_used, f"sharded {kind}: the 10% filter did not take the compact tier")
+    # one probe a shard for each of the 3 batch searches and the streaming tier's phase 2
+    require(launches[kname] == 4 * SHARDED_SHARDS,
+            f"sharded {kind}: {launches[kname]} launches of {kname}, wanted one a shard a probe")
+    if quant:
+        require(launches["ivf_group"] == launches[kname],
+                f"sharded {kind}: probes and grouping passes differ in number")
+    rec, n_ok = check("after optimize k=10", batch, corpus, everyone, post, 10)
+    live3 = group == 3                             # the filter over the live rows
+    live3[single_doomed] = False
+    live3[rows:] = False
+    check_exact("filtered 10% (compact tier) k=10", f10, corpus, range(4), [live3] * 4, 10)
+    if quant:
+        rec_s = recall_full(stream, corpus, live3)
+        require(all(live3[i] for row in stream for i, _ in row)
+                and all(len(row) == 10 for row in stream),
+                f"sharded {kind}: the streaming tier broke the filter")
+    else:
+        rec_s, _ = check_exact("streaming tier k=10", stream, corpus, everyone,
+                               [live3] * BATCH, 10)
+    gone = set(doomed) | set(single_doomed)
+    require(not any(i in gone for row in after for i, _ in row),
+            f"sharded {kind}: a deleted id came back")
+    rec_a, _ = check("after delete k=10", after, corpus, everyone,
+                     probed_candidates(idx, corpus, everyone), 10)
+    med = timed(lambda: db.vector_search_batch(corpus.queries, 10))
+    log(f"{tag} optimize() {optimize_s:.2f} s: list_cap {idx.list_cap}; answers agree with the "
+        f"numpy oracles ({n_ok} queries checked; recall@10 against the probed-lists oracle "
+        f"{rec:.4f}, after delete {rec_a:.4f}; compact tier exact; streaming tier recall@10 "
+        f"{rec_s:.4f}); kernel launches {launches}")
+    log(f"[times] sharded_{kind} ({CARD}): vector_search_batch B={BATCH} k=10 over "
+        f"{SHARDED_SHARDS} shards: median {med * 1e3:.3f} ms of 20 ({BATCH / med:.0f} "
+        f"queries/s); ingest {rows / ingest_s:.0f} docs/s; optimize {optimize_s:.2f} s")
+    log(f"[sharded] {kname} on shard 0's own lists [{idx.nlist},{idx.list_cap // SHARDED_SHARDS}]:")
+    stats = probe_main_shapes(kind, ShardPlanes(idx, 0), corpus)
+    stats.pop("library", None)
+    db.close()
+    SHARDED_SECONDS[f"sharded_{kind}"] = time.perf_counter() - t_part
+    return launches, stats
+
+
+def sharded_report():
+    total = sum(SHARDED_SECONDS.values())
+    parts = ", ".join(f"{k} {v:.1f} s" for k, v in SHARDED_SECONDS.items())
+    if SHARDED_IVF_ROWS < QUANT_ROWS:
+        log(f"[sharded] cut: sharded_ivf / _int8 / _int4 at {SHARDED_IVF_ROWS} of the IVF "
+            f"corpus's {QUANT_ROWS} rows (nlist, nprobe and D as the single card's)")
+    log(f"[time] sharded phase {total:.1f} s ({parts}; budget {SHARDED_BUDGET_S:.0f} s"
+        f"{', over it' if total > SHARDED_BUDGET_S else ''})")
+
 
 
 # -- graph search (kind="graph") and B11 ----------------------------------------------
@@ -3046,7 +3482,8 @@ SERVER_QUERIES = 320      # distinct query vectors: half near stored rows, half 
 NEW_ROWS = 8192           # rows upserted over gRPC (16 RPCs of 512)
 REST_ROWS = 1024          # rows posted over REST (4 calls of 256)
 SERVED_DELETES = 1024
-CLI_ROWS = 1 << 16        # rows the serve subprocess takes over gRPC (64 RPCs of 1,024)
+CLI_ROWS = 1 << 14        # rows the serve subprocess takes over gRPC (16 RPCs of 1,024; cut
+                          # from 65,536 to make room in the limit for the sharded phase)
 # the keys each CLI subcommand prints, as the JAX package's CLI prints them
 # (tests/test_torch_bench_cli.py holds the two CLIs to one set)
 CLI_KEYS = {
@@ -3512,15 +3949,20 @@ def cli_path():
 # -- the distributed tier ---------------------------------------------------------------
 
 CLUSTER_BUDGET_S = 240.0  # cluster_path's two parts together
-CLUSTER_DOCS = N_ROWS     # documents of the in-process cluster
+# documents of the in-process cluster: a cut of scale from 1,048,576 (the
+# in-process part took 129.5 s on an H100) to make room in the limit for the sharded
+# phase; each node still holds ~300k rows at capacity 524,288, so every leg
+# runs B1 / B2
+CLUSTER_DOCS = 7 << 16
 CLUSTER_NODES = ("node-1", "node-2", "node-3")
 CLUSTER_QUERIES = 256     # half near stored documents (of the first batch), half anywhere
 CLUSTER_SEARCHES = 768    # session searches from 32 threads, at each k
 CLUSTER_BATCH = 64        # search_batch's B
 CLUSTER_DELETES = 1024
 # rows the three serve processes take over gRPC: cut from 65,536 for the
-# phase's budget (the uncut part took 103.6 s, 62.9 s of it the ingest)
-GRPC_ROWS = 1 << 14
+# phase's budget (the uncut part took 103.6 s, 62.9 s of it the ingest),
+# then from 16,384 to make room in the limit for the sharded phase
+GRPC_ROWS = 1 << 13
 
 
 class Pair:
@@ -3548,7 +3990,7 @@ def cluster_path():
     ``ClusterService`` of 3 nodes, 16 shards, RF = 2 (the reference CLI's
     ``serve`` defaults on the 3-node minimum its README names) over the
     default flat, cosine, bf16 index at D = 768, every node's index on the
-    card; 1,048,576 documents upserted with a session token (each node holds
+    card; 458,752 documents upserted with a session token (each node holds
     ~2/3 of them, so every shard-local leg runs B1 or B2), session searches
     from 32 threads through all three coordinators at k = 10 and 3,
     ``search_batch``, a delete, node-3 failed and recovered, each answer
@@ -3907,27 +4349,37 @@ def main():
         f"{', over it' if server_s + cli_s > SERVER_BUDGET_S else ''})")
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     corpus = Clustered(IVF_ROWS)
-    counts, kernel_stats["ivf_probe"] = ivf_path("ivf", corpus, IVF_NLIST)
-    launches["ivf_probe"] = counts["ivf_probe"]
-    torch.cuda.empty_cache()
-    log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
-    if QUANT_ROWS != IVF_ROWS:
-        corpus = Clustered(QUANT_ROWS)
-    log(f"[ivf] the quantized kinds run at {QUANT_ROWS} rows, nlist {QUANT_NLIST}")
-    group_launches = {}
-    for kind in ("ivf_int8", "ivf_int4"):
+    # each IVF kind on one card, then its sharded twin on the same corpus,
+    # held to the single card's answers with its centroids
+    probe_paths, group_launches = {}, {}
+    for kind, nlist in (("ivf", IVF_NLIST), ("ivf_int8", QUANT_NLIST), ("ivf_int4", QUANT_NLIST)):
+        if kind != "ivf" and QUANT_ROWS != corpus.rows:
+            corpus = Clustered(QUANT_ROWS)
+        if kind == "ivf_int8":
+            log(f"[ivf] the quantized kinds run at {QUANT_ROWS} rows, nlist {QUANT_NLIST}")
         name = IVF_KERNEL[kind]
-        counts, kernel_stats[name] = ivf_path(kind, corpus, QUANT_NLIST)
-        launches[name] = counts[name]
-        group_launches[kind] = counts["ivf_group"]   # B4/B5's grouping pass: one a probe
-        group = kernel_stats[name].pop("group")
-        if kind == "ivf_int4":
-            kernel_stats["ivf_group"] = group
+        counts, kernel_stats[name], single = ivf_path(kind, corpus, nlist)
+        torch.cuda.empty_cache()
+        s_counts, s_stats = sharded_ivf_part(kind, corpus, nlist, single,
+                                             min(SHARDED_IVF_ROWS, corpus.rows))
+        del single
+        probe_paths[name] = {"ivf": counts[name], "sharded": s_counts[name]}
+        if kind != "ivf":   # B4/B5's grouping pass: one a probe
+            group_launches[kind] = counts["ivf_group"]
+            group_launches[f"sharded_{kind}"] = s_counts["ivf_group"]
+            group = kernel_stats[name].pop("group")
+            s_group = s_stats.pop("group")
+            if kind == "ivf_int4":
+                kernel_stats["ivf_group"] = {**group, "sharded": {"path": "sharded_ivf_int4",
+                                                                  **s_group}}
+        kernel_stats[name]["sharded"] = {"path": f"sharded_{kind}", "plane": "shard 0",
+                                         "launches": s_counts[name], **s_stats}
         torch.cuda.empty_cache()
         log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
-    launches["ivf_group"] = sum(group_launches.values())
-    kernel_stats["ivf_group"]["launches_by_path"] = group_launches
     del corpus
+    flat_counts, flat_planes = sharded_flat_part()
+    torch.cuda.empty_cache()
+    log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     launches["hamming"] = binary_path()
     torch.cuda.empty_cache()
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
@@ -3946,6 +4398,16 @@ def main():
                 d_group.update({"path": kind, **group})
         torch.cuda.empty_cache()
         log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
+    # the projected kind sharded: B4 at D = R on each of the mesh's shards
+    t_part = time.perf_counter()
+    counts, _ = small_kind_path("sharded_ivf_int8_proj", "sharded_ivf_int8_proj",
+                                corpora["low-rank"], {}, "ivf_probe_int8",
+                                n_shards=SHARDED_SHARDS)
+    probe_paths["ivf_probe_int8"]["sharded_proj"] = counts["ivf_probe_int8"]
+    group_launches["sharded_ivf_int8_proj"] = counts["ivf_group"]
+    SHARDED_SECONDS["sharded_ivf_int8_proj"] = time.perf_counter() - t_part
+    sharded_report()
+    torch.cuda.empty_cache()
     clustered = corpora["clustered"]
     del corpora
     (launches["gather_dots"], launches["gather_dots@build"], launches["gather_group"],
@@ -3961,16 +4423,27 @@ def main():
     cluster_stats, _ = cluster_path()
     by_path = {"segmax4": {"flat": flat_b1, "server": server_stats["segmax4"]["launches"],
                            "embedded": embedded_b1["launches"],
-                           "cluster": cluster_stats["segmax4"]["launches"]},
+                           "cluster": cluster_stats["segmax4"]["launches"],
+                           "sharded": flat_counts["segmax4"]},
                "segmax2": {"flat": launches["segmax2"],
                            "server": server_stats["segmax2"]["launches"],
-                           "cluster": cluster_stats["segmax2"]["launches"]}}
+                           "cluster": cluster_stats["segmax2"]["launches"],
+                           "sharded": flat_counts["segmax2"]}}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
         kernel_stats[name]["launches_by_path"] = paths
         kernel_stats[name]["server"] = server_stats[name]
         kernel_stats[name]["cluster"] = cluster_stats[name]
+        kernel_stats[name]["sharded"] = {"path": "sharded_flat", "plane": "shard 0",
+                                         "launches": flat_counts[name], **flat_planes[name]}
         log(f"[kernels] {name} launches by path: {paths}")
+    for name, paths in probe_paths.items():
+        launches[name] = sum(paths.values())
+        kernel_stats[name]["launches_by_path"] = paths
+        log(f"[kernels] {name} launches by path: {paths}")
+    launches["ivf_group"] = sum(group_launches.values())
+    kernel_stats["ivf_group"]["launches_by_path"] = group_launches
+    log(f"[kernels] ivf_group launches by path: {group_launches}")
     kernel_stats["segmax4"]["embedded"] = embedded_b1
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     # a phase's stats never overwrite the identifying keys

@@ -19,7 +19,9 @@ deployment (``EmbeddedVectorDB``: lifecycle, warmup, health checks, the
 micro-batching executor, async variants) runs over it, with index
 snapshots, backups, the enterprise wrappers and the device hash embedder
 (``services/device_embedder.py``, the JAX package's projection bit for bit).
-ROADMAP.md lists what is still to be ported.
+The sharded kinds (``parallel``) split one index over a mesh of devices
+that this process drives; the distributed tier (``distributed``) runs a
+cluster of nodes. ROADMAP.md lists what is still to be ported.
 """
 
 from grape_vector_db_tpu_torch.config import (

@@ -9,11 +9,12 @@ fallback (lib.rs:459-540).
 
 Ported: every single-chip index kind (flat, binary, int8, pq, the IVF family
 ivf / ivf_int8 / ivf_int4, ivf_pq, the projected ivf_int8_proj /
-ivf_int4_proj, and graph) over the memory or the file store (``path``), with
-ingest (device-direct for text-only batches on the flat kinds, pipelined),
-search, listing, delete, rebuild, optimize, tuning, index snapshots,
-backups, the enterprise wrappers, stats and health. The sharded kinds are
-still to be ported (ROADMAP.md, queue A).
+ivf_int4_proj, and graph) and the mesh-sharded kinds (``sharded_flat``,
+``sharded_ivf`` / ``_int8`` / ``_int4`` and the two projected ones, over a
+mesh of the host's devices, ``parallel/mesh.py``) over the memory or the file
+store (``path``), with ingest (device-direct for text-only batches on the
+flat kinds, pipelined), search, listing, delete, rebuild, optimize, tuning,
+index snapshots, backups, the enterprise wrappers, stats and health.
 """
 
 from __future__ import annotations
@@ -77,28 +78,71 @@ class DatabaseStats:
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
-def build_index(config: VectorDbConfig, device: str | torch.device = "cuda") -> VectorIndex:
+def _build_sharded_index(kind: str, config: VectorDbConfig, mesh,
+                         device: str | torch.device = "cuda") -> VectorIndex:
+    """The mesh-sharded kinds (``parallel/mesh.py``): one index over a mesh
+    of this host's devices (``local_devices(device)``), shaped by
+    ``config.device``'s ``n_shards`` / ``n_replicas`` / axis names unless a
+    ``mesh`` is given."""
+    from grape_vector_db_tpu_torch.parallel import mesh as pmesh
+
+    dev = config.device
+    if mesh is None:
+        local = pmesh.local_devices(device)
+        if dev.n_replicas > 1:
+            mesh = pmesh.make_mesh_2d(dev.n_replicas, n_shards=dev.n_shards,
+                                      replica_axis=dev.replica_axis,
+                                      shard_axis=dev.shard_axis, devices=local)
+        else:
+            mesh = pmesh.make_mesh(n_shards=dev.n_shards, shard_axis=dev.shard_axis,
+                                   devices=local)
+    replica = dev.replica_axis if dev.replica_axis in mesh.axis_names else None
+    n_sh = mesh.shape[dev.shard_axis]
+    if kind == "sharded_flat":
+        return pmesh.ShardedFlatIndex(
+            dimension=config.vector_dimension, mesh=mesh, metric=config.distance,
+            storage_dtype=dev.storage_dtype,
+            shard_capacity=max(128, -(-config.index.initial_capacity // n_sh)),
+            shard_axis=dev.shard_axis, search_mode=dev.search_mode,
+            recall_target=dev.recall_target, replica_axis=replica)
+    common = dict(mesh=mesh, shard_axis=dev.shard_axis, replica_axis=replica,
+                  metric=config.distance, storage_dtype=dev.storage_dtype,
+                  initial_capacity=config.index.initial_capacity,
+                  growth_factor=dev.growth_factor, nlist=config.index.nlist,
+                  nprobe=config.index.nprobe, search_mode=dev.search_mode,
+                  recall_target=dev.recall_target, use_pallas=dev.use_pallas)
+    if kind == "sharded_ivf":
+        return pmesh.ShardedIvfIndex(config.vector_dimension, **common)
+    codes = dict(common, rescore=config.index.int8_rescore,
+                 keep_bf16=config.index.ivf_int8_keep_bf16)
+    if kind == "sharded_ivf_int8":
+        return pmesh.ShardedInt8IvfIndex(config.vector_dimension, **codes)
+    if kind == "sharded_ivf_int4":
+        return pmesh.ShardedInt4IvfIndex(config.vector_dimension, **codes)
+    if kind in ("sharded_ivf_int8_proj", "sharded_ivf_int4_proj"):
+        from grape_vector_db_tpu_torch.index.ivf_proj import get_sharded_projected_cls
+
+        return get_sharded_projected_cls("int4" if "int4" in kind else "int8")(
+            config.vector_dimension, **codes, proj_dim=config.index.proj_dim)
+    raise InvalidArgumentError(f"unknown sharded index kind: {kind}")
+
+
+def build_index(config: VectorDbConfig, device: str | torch.device = "cuda",
+                mesh=None) -> VectorIndex:
     """The index for ``config`` on ``device``, with the arguments the JAX
-    factory passes. Ported kinds: ``"flat"``, ``"binary"``, ``"int8"``,
-    ``"pq"``, ``"ivf"``, ``"ivf_int8"``, ``"ivf_int4"``, ``"ivf_pq"``,
-    ``"ivf_int8_proj"``, ``"ivf_int4_proj"`` and ``"graph"``; the
-    ``sharded_*`` kinds raise. ``auto_shard`` upgrades to a sharded kind
-    only where there is more than one local device, as in the reference:
-    on the CPU or on a host with one GPU it builds the kind as asked, and
-    on a host with more GPUs it raises until the sharded kinds are
-    ported."""
+    factory passes: every kind of the reference, the ``sharded_*`` kinds
+    over ``mesh`` or a mesh of the host's devices. ``auto_shard`` upgrades
+    ``flat`` / ``ivf`` / ``ivf_int8`` / ``ivf_int4`` to their sharded twins
+    where ``local_devices(device)`` holds more than one device, as in the
+    reference: on the CPU or one GPU it builds the kind as asked."""
+    from grape_vector_db_tpu_torch.parallel import mesh as pmesh
+
     kind = config.index.kind
-    if config.device.auto_shard and kind in ("flat", "ivf", "ivf_int8", "ivf_int4"):
-        if torch.device(device).type == "cuda" and torch.cuda.device_count() > 1:
-            raise InvalidArgumentError(
-                f"auto_shard on a host with {torch.cuda.device_count()} GPUs would "
-                f"build sharded_{kind}, which is not ported to the PyTorch package "
-                "yet: the sharded kinds wait for ROADMAP A.8 (parallel/mesh.py on "
-                "torch.distributed)")
+    if (config.device.auto_shard and kind in ("flat", "ivf", "ivf_int8", "ivf_int4")
+            and len(pmesh.local_devices(device)) > 1):
+        kind = "sharded_" + kind
     if kind.startswith("sharded_"):
-        raise InvalidArgumentError(
-            f"index kind {kind!r} is not ported to the PyTorch package yet: the "
-            "sharded kinds wait for ROADMAP A.8 (parallel/mesh.py on torch.distributed)")
+        return _build_sharded_index(kind, config, mesh, device)
     common = dict(
         dimension=config.vector_dimension,
         metric=config.distance,

@@ -5,7 +5,8 @@ kinds (``BinaryDeviceIndex``, ``Int8DeviceIndex``, ``PqDeviceIndex``), the
 IVF family (``IvfDeviceIndex``, ``Int8IvfDeviceIndex``,
 ``Int4IvfDeviceIndex``), ``IvfPqDeviceIndex``, the projected IVF kinds
 (``ProjectedInt8IvfIndex``, ``ProjectedInt4IvfIndex``) and the graph index
-(``GraphDeviceIndex``). The sharded kinds are still to be ported (ROADMAP).
+(``GraphDeviceIndex``). The mesh-sharded kinds live in
+``grape_vector_db_tpu_torch.parallel``.
 """
 
 from grape_vector_db_tpu_torch.index.base import IndexStats, SearchHit, VectorIndex

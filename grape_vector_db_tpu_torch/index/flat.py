@@ -26,7 +26,7 @@ from grape_vector_db_tpu_torch.index.base import IndexStats, SearchHit, VectorIn
 from grape_vector_db_tpu_torch.ops.distance import scored_topk
 from grape_vector_db_tpu_torch.utils.buckets import next_bucket, pad_rows
 
-__all__ = ["FlatDeviceIndex", "FlatIndex", "grow_rows"]
+__all__ = ["FlatDeviceIndex", "FlatIndex", "grow_rows", "ship_batch"]
 
 _SEARCH_CHUNK = 65536
 
@@ -38,6 +38,17 @@ def grow_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     out = torch.zeros((rows,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
     out[:t.shape[0]].copy_(t)
     return out
+
+
+def ship_batch(arr: np.ndarray, storage_dtype) -> torch.Tensor:
+    """A host batch as a CPU tensor in the storage dtype (a name such as
+    ``"bfloat16"``, or a torch dtype), cast on the host before the upload
+    when the dtype is narrower than f32: half the bytes cross to the device
+    in bf16. The cast rounds to nearest even, as the device's does, so the
+    stored values are the same either way."""
+    dt = _STORAGE_DTYPES.get(storage_dtype, storage_dtype)
+    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+    return t.to(dt) if dt.itemsize < 4 else t
 
 
 def _row_norms(vecs: torch.Tensor) -> torch.Tensor:

@@ -150,13 +150,17 @@ class IvfDeviceIndex(VectorIndex):
         self._mutation_epoch = 0
         self._compact_cache = None
 
+    def _zeros(self, shape, dtype: torch.dtype):
+        """A zero plane of the layout (subclass seam: the sharded layout
+        splits every plane over its shards)."""
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
     def _alloc(self, cap: int) -> None:
-        l, d, dev = self.nlist, self._dim, self.device
-        self.vecs = torch.zeros((l, cap, d), dtype=self.storage_dtype, device=dev)
-        self.norms = torch.zeros((l, cap), dtype=torch.float32, device=dev)
-        self.valid = torch.zeros((l, cap), dtype=torch.bool, device=dev)
-        self.recip: Optional[torch.Tensor] = torch.zeros((l, cap), dtype=torch.float32,
-                                                         device=dev)
+        l, d = self.nlist, self._dim
+        self.vecs = self._zeros((l, cap, d), self.storage_dtype)
+        self.norms = self._zeros((l, cap), torch.float32)
+        self.valid = self._zeros((l, cap), torch.bool)
+        self.recip: Optional[torch.Tensor] = self._zeros((l, cap), torch.float32)
 
     @property
     def dimension(self) -> int:
@@ -242,7 +246,9 @@ class IvfDeviceIndex(VectorIndex):
             if self._free[lst]:
                 pos = self._free[lst].pop()
             elif self._next_pos[lst] < self.list_cap:
-                pos = int(self._next_pos[lst])
+                # _next_pos counts occupancy; _phys_pos maps the logical
+                # insert order to a column (the sharded index stripes it)
+                pos = self._phys_pos(int(self._next_pos[lst]))
                 self._next_pos[lst] += 1
             else:
                 spill_idx.append(i)
@@ -267,6 +273,11 @@ class IvfDeviceIndex(VectorIndex):
             self._post_scatter(lists_d, pos_d, vecs_d)
         if spill_idx:
             self._overflow.add_batch([ids[i] for i in spill_idx], vectors[spill_idx])
+
+    def _phys_pos(self, n: int) -> int:
+        """Logical insert order -> column of a list (subclass seam: the
+        sharded layout stripes rows over its shards)."""
+        return n
 
     def _weights(self, norms: torch.Tensor) -> torch.Tensor:
         """Score weight of live rows: 1/|v| for cosine, 1 for dot."""

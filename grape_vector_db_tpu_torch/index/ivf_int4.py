@@ -28,8 +28,7 @@ class Int4IvfDeviceIndex(Int8IvfDeviceIndex):
         if self._dim % 2:
             raise ValueError(f"ivf_int4 needs an even dim, got {self._dim}")
         # int8-typed bytes holding the unsigned packed nibbles
-        self.codes = torch.zeros((self.nlist, cap, self._dim // 2), dtype=torch.int8,
-                                 device=self.device)
+        self.codes = self._zeros((self.nlist, cap, self._dim // 2), torch.int8)
 
     _quantize = staticmethod(quantize_int4)
     _topk = staticmethod(ivf_topk_int4)

@@ -21,7 +21,7 @@ import torch
 
 from grape_vector_db_tpu_torch.index.ivf import IvfDeviceIndex, _from_numpy
 from grape_vector_db_tpu_torch.ops.int8 import quantize_int8
-from grape_vector_db_tpu_torch.ops.ivf import ivf_topk_int8
+from grape_vector_db_tpu_torch.ops.ivf import ivf_topk_int8, make_factor
 from grape_vector_db_tpu_torch.utils.buckets import next_bucket
 
 __all__ = ["Int8IvfDeviceIndex"]
@@ -40,21 +40,20 @@ class Int8IvfDeviceIndex(IvfDeviceIndex):
     # -- storage seams --------------------------------------------------------
 
     def _alloc(self, cap: int) -> None:
-        l, dev = self.nlist, self.device
+        l = self.nlist
         if self.keep_bf16:
             super()._alloc(cap)
         else:
             self.vecs = None
-            self.norms = torch.zeros((l, cap), dtype=torch.float32, device=dev)
-            self.valid = torch.zeros((l, cap), dtype=torch.bool, device=dev)
+            self.norms = self._zeros((l, cap), torch.float32)
+            self.valid = self._zeros((l, cap), torch.bool)
             self.recip = None
         self._alloc_codes(cap)
-        self.scales = torch.zeros((l, cap), dtype=torch.float32, device=dev)
-        self.factor = torch.zeros((l, cap), dtype=torch.float32, device=dev)
+        self.scales = self._zeros((l, cap), torch.float32)
+        self.factor = self._zeros((l, cap), torch.float32)
 
     def _alloc_codes(self, cap: int) -> None:
-        self.codes = torch.zeros((self.nlist, cap, self._dim), dtype=torch.int8,
-                                 device=self.device)
+        self.codes = self._zeros((self.nlist, cap, self._dim), torch.int8)
 
     _quantize = staticmethod(quantize_int8)
 
@@ -85,11 +84,16 @@ class Int8IvfDeviceIndex(IvfDeviceIndex):
 
     def load_state(self, *, codes, scales, factor, **state) -> None:
         """``IvfDeviceIndex.load_state`` plus the code planes: ``codes``,
-        ``scales`` and ``factor`` (``[L, C]`` or the reference's ``[L, 8, C]``)."""
+        ``scales`` and ``factor`` (``[L, C]`` or the reference's ``[L, 8, C]``;
+        None, as the reference keeps none where its kernel is off: made
+        from the scales, norms and validity)."""
         super().load_state(**state)
         with self._lock:
             self.codes = _from_numpy(codes, torch.int8, self.device)
             self.scales = _from_numpy(scales, torch.float32, self.device)
+            if factor is None:
+                self.factor = make_factor(self.scales, self.norms, self.valid, self.metric)
+                return
             factor = np.asarray(factor)
             factor = factor[:, 0, :] if factor.ndim == 3 else factor
             self.factor = _from_numpy(factor, torch.float32, self.device)

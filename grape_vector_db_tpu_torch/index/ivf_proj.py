@@ -11,8 +11,12 @@ external ``VectorIndex`` contract speaks full-dim vectors; ``get_vector`` /
 
 The projection fits on the first batch (or ``train()``); ``optimize()``
 refits it with the centroids on the whole corpus. A retained-energy fraction
-below ``ENERGY_WARN`` warns; below ``min_energy`` the fit refuses. The
-sharded classes wait for the sharded kinds (ROADMAP A.8).
+below ``ENERGY_WARN`` warns; below ``min_energy`` the fit refuses.
+
+``ShardedProjectedInt8IvfIndex`` / ``ShardedProjectedInt4IvfIndex`` put the
+projection over the mesh-sharded int8 / int4 lists (``parallel/mesh.py``):
+each shard holds 1/S of every list's R-dim codes and probes them with B4 /
+B5 at D = R. They are built on first access (the module ``__getattr__``).
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from grape_vector_db_tpu_torch.index.ivf_int8 import Int8IvfDeviceIndex
 from grape_vector_db_tpu_torch.ops.kmeans import assign_clusters
 from grape_vector_db_tpu_torch.utils.buckets import next_bucket
 
-__all__ = ["ProjectedInt8IvfIndex", "ProjectedInt4IvfIndex"]
+__all__ = ["ProjectedInt8IvfIndex", "ProjectedInt4IvfIndex",
+           "ShardedProjectedInt8IvfIndex", "ShardedProjectedInt4IvfIndex"]
 
 
 def _fit_projection(sample: torch.Tensor, r: int) -> Tuple[torch.Tensor, float]:
@@ -215,3 +220,41 @@ class ProjectedInt4IvfIndex(ProjectedInt8IvfIndex, Int4IvfDeviceIndex):
     R = 384 gives 192 packed bytes a row, twelve 16-byte chunks."""
 
     kind = "ivf_int4_proj"
+
+
+def _make_sharded_projected():
+    """The two sharded classes, built when first asked for: the parallel
+    package imports this module's parents, so it is imported here late."""
+    from grape_vector_db_tpu_torch.parallel.mesh import (ShardedInt4IvfIndex,
+                                                         ShardedInt8IvfIndex)
+
+    class ShardedProjectedInt8IvfIndex(ProjectedInt8IvfIndex, ShardedInt8IvfIndex):
+        """The projection over the mesh-sharded int8 lists: S shards hold S x
+        the single-device row count at its recall. MRO: the projection
+        wrappers over the sharded layout over the int8 planes."""
+
+        kind = "sharded_ivf_int8_proj"
+
+    class ShardedProjectedInt4IvfIndex(ProjectedInt8IvfIndex, ShardedInt4IvfIndex):
+        """The projection over the mesh-sharded packed-int4 lists."""
+
+        kind = "sharded_ivf_int4_proj"
+
+    return ShardedProjectedInt8IvfIndex, ShardedProjectedInt4IvfIndex
+
+
+def __getattr__(name):
+    # the sharded classes resolve on first access (PEP 562)
+    if name in ("ShardedProjectedInt8IvfIndex", "ShardedProjectedInt4IvfIndex"):
+        i8, i4 = _make_sharded_projected()
+        globals()["ShardedProjectedInt8IvfIndex"] = i8
+        globals()["ShardedProjectedInt4IvfIndex"] = i4
+        return globals()[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def get_sharded_projected_cls(codes_kind: str = "int8"):
+    name = ("ShardedProjectedInt4IvfIndex" if codes_kind == "int4"
+            else "ShardedProjectedInt8IvfIndex")
+    cls = globals().get(name)
+    return cls if cls is not None else __getattr__(name)

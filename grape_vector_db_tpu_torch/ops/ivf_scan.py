@@ -20,7 +20,11 @@ top-k:
 
 Both score ``dot(bf16(q), row) * w`` with ``w = 0`` for invalid cells, in f32
 products, and clamp cosine scores to 1.0 for every storage format, as the
-single-chip reference does in both tiers.
+single-chip reference does in both tiers. ``ivf_compact_masked_topk`` is the
+compact tier in one call, on the reference's ``-1``-padded cell bucket.
+
+Weight planes are ``[L, C]``; every entry point also takes the reference's
+``[L, 8, C]`` (its TPU sublane copy) and reads its first row.
 """
 
 from __future__ import annotations
@@ -35,8 +39,9 @@ from grape_vector_db_tpu_torch.ops.ivf import (
     NEG_INF, _pad_k, finalize_probe_topk, ivf_probe_scores, ivf_probe_scores_int4,
     ivf_probe_scores_int8)
 
-__all__ = ["ivf_exhaustive_masked_topk", "compact_gather", "compact_topk_from_rows",
-           "compact_scan_core", "default_chunk_lists", "probe_dup_mask"]
+__all__ = ["ivf_exhaustive_masked_topk", "ivf_compact_masked_topk", "compact_gather",
+           "compact_topk_from_rows", "compact_scan_core", "default_chunk_lists",
+           "probe_dup_mask"]
 
 
 def probe_dup_mask(probe: torch.Tensor) -> torch.Tensor:
@@ -80,6 +85,12 @@ _PROBES = {"bf16": ivf_probe_scores, "int8": ivf_probe_scores_int8,
            "int4": ivf_probe_scores_int4}
 
 
+def _plane2d(plane: torch.Tensor) -> torch.Tensor:
+    """A weight plane as ``[L, C]``: the reference's ``[L, 8, C]`` holds 8
+    equal rows a list."""
+    return plane[:, 0, :] if plane.dim() == 3 else plane
+
+
 def ivf_exhaustive_masked_topk(
     queries: torch.Tensor,   # [B, D] f32 raw
     data: torch.Tensor,      # [L, C, D] bf16/f32 | [L, C, D] int8 | [L, C, D/2] packed
@@ -89,11 +100,16 @@ def ivf_exhaustive_masked_topk(
     metric: str = "cosine",
     fmt: str = "bf16",
     chunk_lists: int = 64,
+    use_kernel: bool = False,
+    interpret: bool = False,
     nblocks: Optional[torch.Tensor] = None,   # [L] occupied RB-row blocks
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact masked top-k over every list of a bucketed IVF layout: (vals
     [B, k] f32, slots [B, k] int64 cell ids list * C + pos). Disallowed and
-    invalid rows appear only as -inf tail padding."""
+    invalid rows appear only as -inf tail padding. Phase 2 runs the probe
+    kernel for CUDA tensors and its plain version for CPU ones, whatever
+    ``use_kernel`` and ``interpret`` (the reference's TPU switches) say."""
+    plane = _plane2d(plane)
     b = queries.shape[0]
     l, c = mask.shape
     qp = prepare_queries(queries, metric)
@@ -114,12 +130,39 @@ def ivf_exhaustive_masked_topk(
     return finalize_probe_topk(qp, probe, scores, k, metric, cell_mask=mask)
 
 
+def ivf_compact_masked_topk(
+    queries: torch.Tensor,   # [B, D] f32 raw
+    data: torch.Tensor,      # [L, C, D] bf16/f32 | [L, C, D] int8 | [L, C, D/2] packed
+    plane: torch.Tensor,     # [L, C] (or [L, 8, C]) f32 weight plane; 0 = invalid
+    cells,                   # [R] flat allowed cell ids list * C + pos; -1 = pad
+    k: int,
+    metric: str = "cosine",
+    fmt: str = "bf16",
+    chunk_rows: int = 131_072,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact masked top-k by compaction: gather only the allowed rows, scan
+    those: (vals [B, k] f32, slots [B, k] int64). ``cells`` is the
+    reference's bucket, padded with -1; the pads are dropped before any
+    index op (torch would read a -1 as the last cell). Slots past the
+    allowed rows are -inf with slot 0."""
+    cells = torch.as_tensor(cells, device=data.device).reshape(-1).to(torch.int64)
+    cells = cells[cells >= 0]
+    if cells.numel() == 0:
+        b = queries.shape[0]
+        return (torch.full((b, k), NEG_INF, dtype=torch.float32, device=data.device),
+                torch.zeros((b, k), dtype=torch.int64, device=data.device))
+    rows, w = compact_gather(data, plane, cells)
+    return compact_topk_from_rows(queries, rows, w, cells, k=k, metric=metric, fmt=fmt,
+                                  chunk_rows=chunk_rows)
+
+
 def compact_gather(data: torch.Tensor, plane: torch.Tensor,
                    cells: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The allowed rows (source dtype) and their score weights, for flat
     cell ids ``cells`` = list * C + pos. The reference pads ``cells`` to a
     power-of-two bucket with -1 (one compiled program per bucket); eager
     PyTorch needs no padding, so every entry is a real cell."""
+    plane = _plane2d(plane)
     l, c = plane.shape
     flat = data.reshape((l * c,) + tuple(data.shape[2:]))
     return flat[cells], plane.reshape(-1)[cells]

@@ -1180,3 +1180,70 @@ def test_cluster_legs_run_b1_on_the_card(cuda):
         assert_hits_match([single], want[:1], 3e-3)
     finally:
         svc.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,key", [(10, "segmax4"), (3, "segmax2")])
+def test_sharded_flat_runs_the_segment_kernel_on_every_shard(cuda, k, key):
+    """``sharded_flat`` over a mesh of four entries of one card, 4 shards of
+    524,288 rows' capacity: every search runs B1 (k >= 4) or B2 (k <= 3) once
+    a shard, and the merged answers are exact against an f32 product of the
+    bf16-rounded rows on the card (ids with the near-tie guard, 3e-3)."""
+    from grape_vector_db_tpu_torch.parallel import ShardedFlatIndex, make_mesh
+
+    n, d = 600_000, 128
+    idx = ShardedFlatIndex(d, mesh=make_mesh(4, devices=[cuda]), shard_capacity=524_288)
+    assert idx.device.type == "cuda" and idx.n_shards == 4
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    idx.add_batch([f"p{i}" for i in range(n)], x)
+    q = x[:16] + 0.1 * rng.standard_normal((16, d), dtype=np.float32)
+    tseg.reset_launch_counts()
+    got = idx.search_batch(q, k)
+    torch.cuda.synchronize()
+    assert tseg.LAUNCHES[key] == 4 and sum(tseg.LAUNCHES.values()) == 4
+    xs = torch.nn.functional.normalize(torch.from_numpy(x).to(cuda).to(torch.bfloat16).float(),
+                                       dim=1)
+    s = torch.nn.functional.normalize(torch.from_numpy(q).to(cuda), dim=1) @ xs.T
+    vals, ids = torch.topk(s, k, dim=1)
+    want = [[(f"p{int(i)}", float(v)) for i, v in zip(ir, vr)]
+            for ir, vr in zip(ids.cpu(), vals.cpu())]
+    assert_hits_match(got, want, 3e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ivf", "ivf_int8", "ivf_int4"])
+def test_sharded_ivf_probe_runs_on_every_shard(cuda, kind):
+    """The sharded IVF kinds over four entries of one card: a search runs
+    the kind's probe kernel (B3, B4 or B5, the last two after their grouping
+    pass) once a shard, and answers as the same index on a CPU mesh with the
+    same centroids (plain versions there): ids with the near-tie guard,
+    3e-3."""
+    from grape_vector_db_tpu_torch.parallel import (ShardedInt4IvfIndex, ShardedInt8IvfIndex,
+                                                    ShardedIvfIndex, make_mesh)
+
+    cls = {"ivf": ShardedIvfIndex, "ivf_int8": ShardedInt8IvfIndex,
+           "ivf_int4": ShardedInt4IvfIndex}[kind]
+    key = {"ivf": "ivf_probe", "ivf_int8": "ivf_probe_int8", "ivf_int4": "ivf_probe_int4"}[kind]
+    n, d = 40_000, 128
+    rng = np.random.default_rng(17)
+    centres = rng.standard_normal((64, d), dtype=np.float32)
+    x = centres[rng.integers(0, 64, n)] + 0.3 * rng.standard_normal((n, d), dtype=np.float32)
+    ids = [f"p{i}" for i in range(n)]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        idx = cls(d, mesh=make_mesh(4, devices=[dev]), nlist=64, nprobe=8,
+                  initial_capacity=2 * n)
+        if out:
+            idx.centroids = out[0][0].centroids.cpu()
+        idx.add_batch(ids, x)
+        q = out[0][2] if out else x[:16] + 0.05 * rng.standard_normal((16, d), dtype=np.float32)
+        tivf.reset_launch_counts()
+        hits = idx.search_batch(q, 10)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert tivf.LAUNCHES[key] == 4
+            assert tivf.LAUNCHES["ivf_group"] == (0 if kind == "ivf" else 4)
+        out.append((idx, hits, q))
+    assert out[1][0]._id_to_cell == out[0][0]._id_to_cell
+    assert_hits_match(out[0][1], out[1][1], 3e-3)

@@ -27,7 +27,7 @@ from grape_vector_db_tpu.types import SearchRequest as JaxSearchRequest
 from grape_vector_db_tpu_torch import (Condition, Document, Filter, HybridSearchRequest,
                                        SearchRequest, VectorDatabase, VectorDbConfig)
 from grape_vector_db_tpu_torch.db import build_index
-from grape_vector_db_tpu_torch.errors import InvalidArgumentError, StateError
+from grape_vector_db_tpu_torch.errors import StateError
 from grape_vector_db_tpu_torch.ops import distance as tdist
 from grape_vector_db_tpu_torch.ops import segmax as tseg
 from torch_parity import assert_hits_match
@@ -136,20 +136,34 @@ def test_text_and_hybrid_search_match_jax(rng):
 
 @pytest.mark.parametrize("kind", ["sharded_flat", "sharded_ivf", "sharded_ivf_int8",
                                   "sharded_ivf_int4", "auto_shard"])
-def test_unported_index_kinds_raise(kind, monkeypatch):
-    """The sharded kinds raise, and so does ``auto_shard`` where it would
-    build one: on a host with more than one GPU (two are faked here; the
-    check comes before anything touches a card)."""
+def test_sharded_kinds_answer_as_the_unsharded_kind(rng, monkeypatch, kind):
+    """Every sharded kind builds (``auto_shard`` on a host of four CPU
+    devices builds ``sharded_flat``) and answers as its unsharded kind on
+    the same documents: ids with the near-tie guard, scores within 1e-4
+    (bf16 storage; the IVF kinds probe every list)."""
+    from grape_vector_db_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(pmesh, "local_devices", lambda device="cuda": [torch.device("cpu")] * 4)
     cfg = VectorDbConfig(vector_dimension=D)
-    device = "cpu"
+    cfg.index.nlist = cfg.index.nprobe = 8
     if kind == "auto_shard":
         cfg.device.auto_shard = True
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-        device = "cuda"
+        base = "flat"
     else:
         cfg.index.kind = kind
-    with pytest.raises(InvalidArgumentError, match="ROADMAP"):
-        build_index(cfg, device=device)
+        base = kind.removeprefix("sharded_")
+    idx = build_index(cfg, device="cpu")
+    assert idx.kind == ("sharded_flat" if kind == "auto_shard" else kind) and idx.n_shards == 4
+    cfg.index.kind, cfg.device.auto_shard = base, False
+    plain = build_index(cfg, device="cpu")
+    x = rng.standard_normal((1200, D)).astype(np.float32)
+    ids = [f"d{i}" for i in range(len(x))]
+    for index in (idx, plain):
+        index.add_batch(ids, x)
+        if hasattr(index, "centroids"):
+            index.optimize()
+    q = np.concatenate([x[:4] + 0.05, rng.standard_normal((4, D)).astype(np.float32)])
+    assert_hits_match(idx.search_batch(q, 10), plain.search_batch(q, 10), 1e-4)
 
 
 @pytest.mark.parametrize("kind", ["flat", "ivf", "ivf_int8", "ivf_int4"])

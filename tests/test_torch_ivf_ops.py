@@ -293,6 +293,37 @@ def test_exhaustive_and_compact_tiers_match_jax(rng, fmt):
         _t(q), tdata, _t(plane), _t(mask), k=k, fmt=fmt, nblocks=_t(nb)), tol=3e-3)
 
 
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
+def test_reference_calls_of_the_exact_tiers_match_jax(rng, fmt):
+    """ROADMAP C.7: the reference's calls run unchanged on the port:
+    ``ivf_compact_masked_topk`` on the -1-padded cell bucket and
+    ``ivf_exhaustive_masked_topk`` with ``use_kernel`` / ``interpret``, both
+    with the [L, 8, C] plane (read back from JAX) and the [L, C] one."""
+    jdata, tdata, plane, nb, mask = _scan_state(rng, fmt)
+    q = rng.standard_normal((8, D)).astype(np.float32)
+    k = 10
+    cells = np.flatnonzero(mask.reshape(-1))
+    padded = np.full(1024, -1, np.int32)
+    padded[:len(cells)] = cells
+    want = jscan.ivf_compact_masked_topk(jnp.asarray(q), jdata, _plane8(plane),
+                                         jnp.asarray(padded), k=k, fmt=fmt)
+    for tplane in (_t(np.asarray(_plane8(plane))), _t(plane)):
+        got = tscan.ivf_compact_masked_topk(_t(q), tdata, tplane, _t(padded), k=k, fmt=fmt)
+        assert_topk_match(*got, *want, tol=3e-3)
+        assert (to_np(got[1]) >= 0).all()
+    want = jscan.ivf_exhaustive_masked_topk(
+        jnp.asarray(q), jdata, _plane8(plane), jnp.asarray(mask), k=k, fmt=fmt,
+        chunk_lists=2, use_kernel=True, interpret=True, nblocks=jnp.asarray(nb))
+    got = tscan.ivf_exhaustive_masked_topk(
+        _t(q), tdata, _t(np.asarray(_plane8(plane))), _t(mask), k, "cosine", fmt, 2, True,
+        True, _t(nb))
+    assert_topk_match(*got, *want, tol=3e-3)
+    # an all-pad bucket answers -inf everywhere
+    empty = tscan.ivf_compact_masked_topk(_t(q), tdata, _t(plane), _t(np.full(64, -1)), k=k,
+                                          fmt=fmt)
+    assert torch.isneginf(empty[0]).all() and empty[0].shape == (8, k)
+
+
 def test_probe_dup_mask_and_chunk_lists_match_jax():
     probe = np.array([[3, 0, 3, 0, 7], [1, 2, 3, 4, 5]], np.int32)
     np.testing.assert_array_equal(to_np(tscan.probe_dup_mask(_t(probe))),

@@ -79,6 +79,7 @@ def _blocked(name: str) -> bool:
 def test_no_file_imports_jax():
     files = list(_port_files())
     assert len(files) >= 20
+    assert os.path.join(PORT_PKG, "parallel", "mesh.py") in files   # the sharded kinds
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -6,13 +6,17 @@
   ``use_pallas`` are accepted and ignored: the port's selections are exact
   and it has no Pallas.
 - ``grape_vector_db_tpu_torch.ops`` exports every name of the reference's
-  ``ops.__all__``, with the reference's parameters in its order.
+  ``ops.__all__``, with the reference's parameters in its order; so does
+  every other module the two packages share (same path), the sharded
+  ``parallel`` package, ``ops/ivf_scan.py`` and ``index/ivf_proj.py``
+  among them.
 - ``l2_normalize(..., axis=)`` and ``scored_topk(..., recall_target=)`` give
   what the calls without the keyword give.
 """
 
 import importlib
 import inspect
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,20 +28,26 @@ import grape_vector_db_tpu_torch.ops as tops
 from grape_vector_db_tpu.ops import distance as jdist
 from grape_vector_db_tpu_torch.ops import distance as tdist
 
-# (module under index/, class) present in both packages
+# (module under index/, or a dotted path under the package, class) present
+# in both packages
 INDEX_CLASSES = [
     ("flat", "FlatDeviceIndex"), ("binary", "BinaryDeviceIndex"),
     ("int8", "Int8DeviceIndex"), ("pq", "PqDeviceIndex"), ("ivf", "IvfDeviceIndex"),
     ("ivf_int8", "Int8IvfDeviceIndex"), ("ivf_int4", "Int4IvfDeviceIndex"),
     ("ivf_pq", "IvfPqDeviceIndex"), ("ivf_proj", "ProjectedInt8IvfIndex"),
     ("ivf_proj", "ProjectedInt4IvfIndex"), ("graph", "GraphDeviceIndex"),
+    ("parallel.mesh", "ShardedFlatIndex"), ("parallel.mesh", "ShardedIvfIndex"),
+    ("parallel.mesh", "ShardedInt8IvfIndex"), ("parallel.mesh", "ShardedInt4IvfIndex"),
+    ("ivf_proj", "ShardedProjectedInt8IvfIndex"), ("ivf_proj", "ShardedProjectedInt4IvfIndex"),
 ]
 _VARIADIC = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _classes(module, name):
-    ref = getattr(importlib.import_module(f"grape_vector_db_tpu.index.{module}"), name)
-    port = getattr(importlib.import_module(f"grape_vector_db_tpu_torch.index.{module}"), name)
+    path = module if "." in module else f"index.{module}"
+    ref = getattr(importlib.import_module(f"grape_vector_db_tpu.{path}"), name)
+    port = getattr(importlib.import_module(f"grape_vector_db_tpu_torch.{path}"), name)
     return ref, port
 
 
@@ -76,7 +86,8 @@ def test_index_builds_with_the_reference_keyword_set(module, name):
     kw = _full_keywords(ref)
     assert {"recall_target", "search_mode"} <= set(kw)
     dim = 256 if "proj_dim" in kw else 64
-    kw.update(dimension=dim, device="cpu", initial_capacity=256, recall_target=0.5)
+    kw.update(dimension=dim, device="cpu", recall_target=0.5)
+    kw["initial_capacity" if "initial_capacity" in kw else "shard_capacity"] = 256
     if "proj_dim" in kw:
         kw["proj_dim"] = 128
     if "use_pallas" in kw:
@@ -102,6 +113,47 @@ def test_ops_exports_every_reference_name(name):
     assert name in tops.__all__
     want = [p.name for p in _params(getattr(jops, name))]
     assert [p.name for p in _params(got)][:len(want)] == want
+
+
+def _shared_modules():
+    """Dotted module names (under each package) that both packages have."""
+    found = []
+    for pkg in ("grape_vector_db_tpu", "grape_vector_db_tpu_torch"):
+        names = set()
+        for root, _, files in os.walk(os.path.join(_REPO, pkg)):
+            for f in files:
+                if f.endswith(".py"):
+                    rel = os.path.relpath(os.path.join(root, f), os.path.join(_REPO, pkg))
+                    names.add(rel[:-3].replace(os.sep, ".").removesuffix("__init__")
+                              .rstrip("."))
+        found.append(names)
+    return sorted(found[0] & found[1])
+
+
+def _is_function(obj) -> bool:
+    """A plain function, or a jitted one (which keeps it as ``__wrapped__``)."""
+    return inspect.isfunction(obj) or (callable(obj) and not inspect.isclass(obj)
+                                       and inspect.isfunction(getattr(obj, "__wrapped__", None)))
+
+
+@pytest.mark.parametrize("module", _shared_modules())
+def test_module_exports_match_the_reference(module):
+    """Every name of a shared module's reference ``__all__`` is in the
+    port's, and each such function takes the reference's parameters in its
+    order (the port may add trailing ones)."""
+    suffix = f".{module}" if module else ""
+    ref = importlib.import_module(f"grape_vector_db_tpu{suffix}")
+    port = importlib.import_module(f"grape_vector_db_tpu_torch{suffix}")
+    want_all = getattr(ref, "__all__", None)
+    if want_all is None:
+        return
+    missing = [n for n in want_all if n not in getattr(port, "__all__", ())]
+    assert not missing, f"{module}: the port's __all__ lacks {missing}"
+    for name in want_all:
+        r, p = getattr(ref, name), getattr(port, name)
+        if _is_function(r):
+            want = [x.name for x in _params(r)]
+            assert [x.name for x in _params(p)][:len(want)] == want, f"{module}.{name}"
 
 
 @pytest.mark.parametrize("axis", [0, 1, -1])
