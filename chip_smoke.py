@@ -114,7 +114,15 @@ the port's paths through ``VectorDatabase`` on the card:
   search, both exact filter tiers, deletes, each against the numpy oracles,
   every probe running B3 / B4 / B5 once a shard; ``sharded_ivf_int8_proj``
   on the low-rank corpus (B4 at D = 384 on each shard); B1, B2 and B3-B5
-  held against their plain versions on shard 0's own planes.
+  held against their plain versions on shard 0's own planes;
+- the examples: each of the 15 scripts of ``examples_torch/`` (the port's
+  counterparts of ``examples/``) in process at its own sizes with
+  ``main(device="cuda")``, its stdout held against its run on the CPU in
+  the same process under the rules of ``tests/examples_parity.py``;
+  ``int8_ivf_demo`` and ``sharded_mesh_demo`` must launch B4,
+  ``capacity_tier_demo`` B5, and B4 and B5 are held against their plain
+  versions at D = 128 on the int8 bandwidth index's and the ``ivf_int4``
+  index's own planes.
 
 B3, B4 and B5 are timed beside their nearest library composition (the probed
 lists' rows gathered, B4's codes cast and B5's nibbles unpacked to bf16,
@@ -139,7 +147,9 @@ sharded paths and its served-plane, cluster-plane and shard-plane figures;
 B3/B4/B5's entries carry their launches on the IVF and sharded paths (and
 the sharded projected path's, B4) under "launches_by_path" and their check
 on shard 0's lists under "sharded"; the projected path's own run
-at D = 384 sits under their "d384" key; B4/B5's grouping pass has its own
+at D = 384 sits under their "d384" key, the examples' run at D = 128 under
+"d128", and their launches in the examples under "examples" of
+"launches_by_path" (B1's and B2's too); B4/B5's grouping pass has its own
 entry, "ivf_group", whose launches are all those paths' with the split under
 "launches_by_path"; B11 has one entry for the graph
 search, with its entry step's shape under "entry", one for the build,
@@ -2208,43 +2218,51 @@ def small_kind_path(label, kind, corpus, updates, kname, n_shards=None):
 
 def proj_probe_shapes(name, idx, corpus):
     """B4/B5 against their plain versions at the projected index's shapes
-    (D = R = 384), timed in turns, with the bound."""
+    (D = R = 384)."""
+    qt = torch.from_numpy(corpus.queries).to(DEV) @ idx.proj
+    qp = torch.nn.functional.normalize(qt, dim=1)
+    probe = torch.topk(qp @ idx.centroids.T, NPROBE, dim=1).indices.to(torch.int32)
+    return codes_probe_check(name, idx, qp, probe, f"D={PROJ_DIM}")
+
+
+def codes_probe_check(name, idx, qp, probe, label):
+    """B4 or B5 against its plain version on an int8 / int4 IVF index's own
+    planes, at the prepared queries and probed lists a search gives it, timed
+    in turns, with the bound; then its library composition and its grouping
+    pass (``grouped_details``)."""
     from grape_vector_db_tpu_torch.ops import ivf as tivf
 
     kern, plain = ((tivf.ivf_probe_scores_int8, tivf.ivf_probe_scores_int8_ref)
                    if name == "ivf_probe_int8"
                    else (tivf.ivf_probe_scores_int4, tivf.ivf_probe_scores_int4_ref))
-    qt = torch.from_numpy(corpus.queries).to(DEV) @ idx.proj
-    qp = torch.nn.functional.normalize(qt, dim=1)
-    probe = torch.topk(qp @ idx.centroids.T, NPROBE, dim=1).indices.to(torch.int32)
     nb = idx._nblocks()
     data, w = idx.codes, idx.factor
     got = kern(qp, probe, data, w, nb)
     torch.cuda.synchronize()
     want = plain(qp, probe, data, w, nb)
     inv = want == -1e9
-    require(torch.equal(got == -1e9, inv), f"{name} D={PROJ_DIM}: -1e9 positions differ")
+    require(torch.equal(got == -1e9, inv), f"{name} {label}: -1e9 positions differ")
     err = (got - want)[~inv].abs().max().item()
-    require(err <= TOL, f"{name} D={PROJ_DIM}: max |score diff| {err} > {TOL}")
+    require(err <= TOL, f"{name} {label}: max |score diff| {err} > {TOL}")
     (k1, k2), (p1, p2) = in_turns(lambda: kern(qp, probe, data, w, nb),
                                   lambda: plain(qp, probe, data, w, nb))
     n_lists, cap = w.shape
+    (b, d), nprobe = qp.shape, probe.shape[1]
     lim = torch.clamp(nb.long() * 64, max=cap)
     live = (w != 0) & (torch.arange(cap, device=w.device)[None, :] < lim[:, None])
     per_list = live.sum(dim=1)
     row_bytes = data.shape[2] + 4
     unique = int(per_list[torch.unique(probe.long())].sum()) * row_bytes
-    ops = 2.0 * int(per_list[probe.long()].sum()) * PROJ_DIM
-    b = bound(unique + BATCH * PROJ_DIM * 4 + BATCH * NPROBE * cap * 4, ops)
-    log(f"[kernels] {name} at D={PROJ_DIM}: q [{BATCH},{PROJ_DIM}] x probe [{BATCH},{NPROBE}] "
-        f"over [{n_lists},{cap},{data.shape[2]}] {data.dtype}: max_abs_err {err:.3g}")
-    log(f"[times] {name} D={PROJ_DIM}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-        f"{p2:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    stats = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **b}
+    ops = 2.0 * int(per_list[probe.long()].sum()) * d
+    bnd = bound(unique + b * d * 4 + b * nprobe * cap * 4, ops)
+    log(f"[kernels] {name} at {label}: q [{b},{d}] x probe [{b},{nprobe}] over [{n_lists},{cap},"
+        f"{data.shape[2]}] {data.dtype}: max_abs_err {err:.3g}")
+    log(f"[times] {name} {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
+        f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+    stats = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **bnd}
     stats["library_ms"], stats["library"] = probe_library_ms(name, qp, probe, data, w, nb)
-    log(f"[times] {name} D={PROJ_DIM}: library {stats['library']}: "
-        f"{stats['library_ms']:.4f} ms")
-    extra, stats["group"] = grouped_details(name, qp, probe, data, w, nb, f"D={PROJ_DIM}")
+    log(f"[times] {name} {label}: library {stats['library']}: {stats['library_ms']:.4f} ms")
+    extra, stats["group"] = grouped_details(name, qp, probe, data, w, nb, label)
     stats.update(extra)
     return stats
 
@@ -4324,6 +4342,95 @@ def cluster_grpc_part() -> float:
     return time.perf_counter() - t_part
 
 
+# -- the examples: examples_torch/ on the card ----------------------------------
+
+EXAMPLES_BUDGET_S = 90.0
+# the examples whose run must launch these kernels (B4 / B5 and their grouping pass)
+EXAMPLES_KERNELS = {"int8_ivf_demo": "ivf_probe_int8", "capacity_tier_demo": "ivf_probe_int4",
+                    "sharded_mesh_demo": "ivf_probe_int8"}
+
+
+def load_path(name: str, path: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(parity, mod, device: str):
+    """(stdout, result) of the example's ``main`` on ``device``, run in a
+    temporary directory (with its ``data_dir`` there where it takes one)."""
+    import contextlib
+    import io
+    import tempfile
+
+    buf, cwd = io.StringIO(), os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="gvdb_example_") as tmp:
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(buf):
+                result = mod.main(**parity.main_kwargs(mod.main, tmp, device))
+        finally:
+            os.chdir(cwd)
+    return buf.getvalue(), result
+
+
+def examples_path():
+    """Every example of examples_torch/ in process, in the order of
+    tests/examples_parity.py's EXAMPLES, with ``main(device="cuda")``; each
+    one's stdout held against its run on the CPU (the same process) under
+    the parity rules; B4 launched by int8_ivf_demo and sharded_mesh_demo, B5
+    by capacity_tier_demo; B4 and B5 held against their plain versions at
+    D = 128 on the int8 bandwidth index's and the ivf_int4 index's own
+    planes. Returns (each example's kernel launches, B4's and B5's D = 128
+    stats)."""
+    from grape_vector_db_tpu_torch.ops import ivf as tivf
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    parity = load_path("examples_parity", os.path.join(root, "tests", "examples_parity.py"))
+    t_phase = time.perf_counter()
+    counts, stats = {}, {}
+    for name in parity.EXAMPLES:
+        mod = load_path(f"example_{name}", os.path.join(root, "examples_torch", f"{name}.py"))
+        reset_counts()
+        t0 = time.perf_counter()
+        out, result = run_example(parity, mod, DEV)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts[name] = {k: v for k, v in read_counts().items() if v}
+        for line in out.splitlines():
+            log(f"[examples] {name}: {line}")
+        t0 = time.perf_counter()
+        ref, _ = run_example(parity, mod, "cpu")
+        cpu_s = time.perf_counter() - t0
+        parity.compare(name, ref, out)
+        kname = EXAMPLES_KERNELS.get(name)
+        if kname:
+            require(counts[name].get(kname, 0) > 0, f"{name}: the run never launched {kname}")
+            require(counts[name].get("ivf_group", 0) == counts[name][kname],
+                    f"{name}: its probes and grouping passes differ in number")
+        log(f"[examples] {name}: {card_s:.2f} s on the card ({cpu_s:.2f} s on the CPU); its "
+            f"output matches the CPU run's; kernel launches {counts[name]}")
+        if name in ("int8_ivf_demo", "capacity_tier_demo"):
+            # the index the run built, at the queries its search gives the probe:
+            # the bandwidth index's 64 queries, and the ivf_int4 db's
+            # single-query search padded to the batch of 8
+            idx = result["bandwidth"] if name == "int8_ivf_demo" else result["index"]
+            queries = result["queries"][:64 if name == "int8_ivf_demo" else 8]
+            qp, probe = tivf._probe_lists(torch.from_numpy(queries).to(DEV), idx.centroids,
+                                          idx.nprobe, idx.metric)
+            stats[kname] = {"path": name, "launches": counts[name][kname],
+                            **codes_probe_check(kname, idx, qp, probe, f"D={qp.shape[1]}")}
+        del result
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[time] examples phase {phase_s:.1f} s (budget {EXAMPLES_BUDGET_S:.0f} s"
+        f"{', over it' if phase_s > EXAMPLES_BUDGET_S else ''})")
+    return counts, stats
+
+
 def main():
     global PARENT
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4421,14 +4528,28 @@ def main():
     torch.cuda.empty_cache()
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     cluster_stats, _ = cluster_path()
+    torch.cuda.empty_cache()
+    example_counts, example_stats = examples_path()
+    ex_launches = {k: sum(c.get(k, 0) for c in example_counts.values()) for k in KERNELS}
+    for name, d128 in example_stats.items():
+        group = d128.pop("group")
+        probe_paths[name]["examples"] = ex_launches[name]
+        kernel_stats[name]["d128"] = d128
+        if name == "ivf_probe_int4":
+            kernel_stats["ivf_group"]["d128"] = {
+                "path": d128["path"], "launches": d128["launches"], **group}
+    group_launches["examples"] = ex_launches["ivf_group"]
+    log(f"[kernels] examples phase launches by example: {example_counts}")
     by_path = {"segmax4": {"flat": flat_b1, "server": server_stats["segmax4"]["launches"],
                            "embedded": embedded_b1["launches"],
                            "cluster": cluster_stats["segmax4"]["launches"],
-                           "sharded": flat_counts["segmax4"]},
+                           "sharded": flat_counts["segmax4"],
+                           "examples": ex_launches["segmax4"]},
                "segmax2": {"flat": launches["segmax2"],
                            "server": server_stats["segmax2"]["launches"],
                            "cluster": cluster_stats["segmax2"]["launches"],
-                           "sharded": flat_counts["segmax2"]}}
+                           "sharded": flat_counts["segmax2"],
+                           "examples": ex_launches["segmax2"]}}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
         kernel_stats[name]["launches_by_path"] = paths
