@@ -4405,7 +4405,7 @@ def examples_path():
         t0 = time.perf_counter()
         ref, _ = run_example(parity, mod, "cpu")
         cpu_s = time.perf_counter() - t0
-        parity.compare(name, ref, out)
+        parity.compare(name, ref, out, ref_is_jax=False)
         kname = EXAMPLES_KERNELS.get(name)
         if kname:
             require(counts[name].get(kname, 0) > 0, f"{name}: the run never launched {kname}")

@@ -242,6 +242,8 @@ class VectorDatabase:
                 ttl_s=self.config.cache.ttl_seconds,
             )
         self.metrics = MetricsCollector()
+        if hasattr(self.index, "counters"):
+            self.metrics.add_counters(self.index.counters)
         self.filter_engine = FilterEngine()
         self.hybrid_engine = HybridSearchEngine(
             self.index, self.sparse, self.store, self.config.hybrid

@@ -37,6 +37,7 @@ from grape_vector_db_tpu_torch.types import (
     SearchRequest,
     SearchResult,
 )
+from grape_vector_db_tpu_torch.utils.tracing import trace_span
 
 __all__ = ["QueryEngine", "QueryOptimizer"]
 
@@ -455,14 +456,19 @@ class QueryEngine:
     def vector_search_batch(
         self, vectors: np.ndarray, limit: int
     ) -> List[List[ScoredPoint]]:
-        """One device call for B queries — the batching executor feeds this."""
-        with QueryTimer(self.metrics):
+        """One device call for B queries — the batching executor feeds this.
+        The latency recorded covers what the caller waits for: the points
+        built for it, and the hits freed."""
+        with trace_span("planner"), QueryTimer(self.metrics):
             q = np.asarray(vectors, dtype=np.float32)
             rescore_c = self._host_rescore_width()
             rows = self.index.search_batch(q, max(limit, rescore_c))
             if rescore_c:
                 rows = self._host_rescore_rows(q, rows, limit)
-        return [[ScoredPoint(id=i, score=s) for i, s in row] for row in rows]
+            with trace_span("planner.points"):
+                points = [[ScoredPoint(id=i, score=s) for i, s in row] for row in rows]
+            del rows
+            return points
 
     def cache_stats(self) -> Dict[str, float]:
         if self._cache is None:

@@ -164,39 +164,41 @@ class BinaryDeviceIndex(FlatDeviceIndex):
         want = min(want, self.max_rescore, max(self.capacity, 1))
         return next_bucket(max(want, k), base=64)
 
+    def _binary_topk(self, q: torch.Tensor, mask: Optional[torch.Tensor],
+                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        chunk = self._scan_chunk()
+        # the filter mask folds into the prescan's validity, so both
+        # stages only ever consider allowed rows
+        valid = self.valid if mask is None else self.valid & mask
+        if not self.keep_vectors:
+            # capacity config: the prescan ranking is the result
+            if self.prescan == "asym":
+                vals, idxs = asym_topk(q, self.codes, valid, k=k, chunk=chunk)
+                # similarity = cosine against the decoded sign vector
+                return vals / float(np.sqrt(self._dim)), idxs
+            return hamming_topk(pack_bits(q, self.threshold), self.codes, valid, k=k,
+                                chunk=chunk, impl=self.hamming_impl)
+        r = self._rescore_count(k)
+        if self.prescan == "asym":
+            pv, cand = asym_topk(q, self.codes, valid, k=r, chunk=chunk)
+            # the rescore's validity channel is the Hamming plane;
+            # synthesize it from the -inf padding sentinel
+            dists = torch.where(torch.isfinite(pv), 0, INVALID_DIST)
+        else:
+            dists, cand = hamming_topk(pack_bits(q, self.threshold), self.codes, valid, k=r,
+                                       chunk=chunk, impl=self.hamming_impl)
+        return _rescore_topk(q, self.vectors, self.norms, cand, dists, k=k, metric=self.metric)
+
     def raw_topk(self, queries: np.ndarray, k: int,
                  mask: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
-        with self._lock:  # see FlatDeviceIndex.raw_topk
-            r = self._rescore_count(k)
-            q = torch.from_numpy(np.asarray(queries, dtype=np.float32)).to(self.device)
-            chunk = self._scan_chunk()
-            # the filter mask folds into the prescan's validity, so both
-            # stages only ever consider allowed rows
-            valid = self.valid if mask is None else self.valid & torch.from_numpy(
-                np.asarray(mask, dtype=bool)).to(self.device)
-            if not self.keep_vectors:
-                # capacity config: the prescan ranking is the result
-                if self.prescan == "asym":
-                    vals, idxs = asym_topk(q, self.codes, valid, k=k, chunk=chunk)
-                    # similarity = cosine against the decoded sign vector
-                    v_np = (vals / float(np.sqrt(self._dim))).cpu().numpy()
-                    return np.where(np.isfinite(v_np), v_np, -np.inf), idxs.cpu().numpy()
-                dists, idxs = hamming_topk(pack_bits(q, self.threshold), self.codes, valid, k=k,
-                                           chunk=chunk, impl=self.hamming_impl)
-                d_np = dists.cpu().numpy().astype(np.float32)
-                sims = 1.0 - d_np / np.float32(self._dim)
-                return np.where(d_np >= INVALID_DIST, -np.inf, sims), idxs.cpu().numpy()
-            if self.prescan == "asym":
-                pv, cand = asym_topk(q, self.codes, valid, k=r, chunk=chunk)
-                # the rescore's validity channel is the Hamming plane;
-                # synthesize it from the -inf padding sentinel
-                dists = torch.where(torch.isfinite(pv), 0, INVALID_DIST)
-            else:
-                dists, cand = hamming_topk(pack_bits(q, self.threshold), self.codes, valid, k=r,
-                                           chunk=chunk, impl=self.hamming_impl)
-            vals, idxs = _rescore_topk(q, self.vectors, self.norms, cand, dists, k=k,
-                                      metric=self.metric)
-            return vals.cpu().numpy(), idxs.cpu().numpy()
+        vals, idxs = self._search_device(queries, k, mask, self._binary_topk)
+        if self.keep_vectors:
+            return vals, idxs
+        if self.prescan == "asym":
+            return np.where(np.isfinite(vals), vals, -np.inf), idxs
+        d_np = vals.astype(np.float32)
+        sims = 1.0 - d_np / np.float32(self._dim)
+        return np.where(d_np >= INVALID_DIST, -np.inf, sims), idxs
 
     # -- maintenance ------------------------------------------------------------
 

@@ -16,7 +16,8 @@ static shapes, so ``index_copy_`` writes only the real rows.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +26,7 @@ from grape_vector_db_tpu_torch.errors import DimensionMismatchError
 from grape_vector_db_tpu_torch.index.base import IndexStats, SearchHit, VectorIndex
 from grape_vector_db_tpu_torch.ops.distance import scored_topk
 from grape_vector_db_tpu_torch.utils.buckets import next_bucket, pad_rows
+from grape_vector_db_tpu_torch.utils.tracing import DeviceWindow, trace_span
 
 __all__ = ["FlatDeviceIndex", "FlatIndex", "grow_rows", "ship_batch"]
 
@@ -90,6 +92,8 @@ class FlatDeviceIndex(VectorIndex):
         self._growth_factor = growth_factor
         self.device = torch.device(device)
         self._lock = threading.RLock()
+        self.lock_wait_s = 0.0   # seconds searches waited for the lock
+        self._window: Optional[DeviceWindow] = None   # made at a CUDA index's first search
         self._alloc(initial_capacity)
         # Host id <-> slot bookkeeping.
         self._id_to_slot: Dict[str, int] = {}
@@ -288,6 +292,52 @@ class FlatDeviceIndex(VectorIndex):
             return mask_from_allowed(set(allowed_ids), self._slot_to_id,
                                      self._id_to_slot)
 
+    def counters(self) -> Dict[str, float]:
+        """The index's always-on counters, exported on /metrics: the seconds
+        searches waited for its lock, and the device milliseconds of their
+        calls (CUDA only)."""
+        return {"index_lock_wait_seconds_total": self.lock_wait_s,
+                "device_time_ms_total": self._window.ms_total if self._window else 0.0}
+
+    def _search_device(self, queries: np.ndarray, k: int, mask: Optional[np.ndarray],
+                       launch: Callable) -> Tuple[np.ndarray, np.ndarray]:
+        """``launch(q, mask, k)`` over the queries and mask uploaded to the
+        device, its two result tensors read back as numpy, under the index
+        lock (see ``raw_topk``), whose wait is counted. The spans
+        ``index.launch`` and ``index.readback`` (the host blocked on the
+        device, and the copy back); on a CUDA index the call's device
+        window, from before the upload to after the last launch."""
+        if not self._lock.acquire(blocking=False):
+            t0 = time.perf_counter()
+            self._lock.acquire()
+            self.lock_wait_s += time.perf_counter() - t0
+        try:
+            if self._window is None and self.device.type == "cuda":
+                self._window = DeviceWindow(self.device)
+            window = self._window
+            if window is not None:
+                window.open()
+            q = torch.from_numpy(np.asarray(queries, dtype=np.float32)).to(self.device)
+            m = None if mask is None else torch.from_numpy(
+                np.asarray(mask, dtype=bool)).to(self.device)
+            with trace_span("index.launch"):
+                vals, idxs = launch(q, m, k)
+            if window is not None:
+                window.close()
+            with trace_span("index.readback"):
+                out = vals.cpu().numpy(), idxs.cpu().numpy()
+            if window is not None:
+                window.settle()
+            return out
+        finally:
+            self._lock.release()
+
+    def _exact_topk(self, q: torch.Tensor, mask: Optional[torch.Tensor],
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        return scored_topk(q, self.vectors, self.norms, self.valid, k=k, metric=self.metric,
+                           chunk=min(_SEARCH_CHUNK, self.capacity), mode=self.search_mode,
+                           mask=mask)
+
     def raw_topk(self, queries: np.ndarray, k: int,
                  mask: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Device top-k: returns (scores [B, k], slot indices [B, k]) as numpy.
@@ -295,33 +345,25 @@ class FlatDeviceIndex(VectorIndex):
 
         Holds the index lock: a write between reading the tensors and the
         scan would mix two states of the index."""
-        with self._lock:
-            chunk = min(_SEARCH_CHUNK, self.capacity)
-            vals, idxs = scored_topk(
-                torch.from_numpy(np.asarray(queries, dtype=np.float32)).to(self.device),
-                self.vectors, self.norms, self.valid,
-                k=k, metric=self.metric, chunk=chunk,
-                mode=self.search_mode,
-                mask=None if mask is None else torch.from_numpy(
-                    np.asarray(mask, dtype=bool)).to(self.device),
-            )
-            return vals.cpu().numpy(), idxs.cpu().numpy()
+        return self._search_device(queries, k, mask, self._exact_topk)
 
     def search_batch(self, queries: np.ndarray, k: int,
                      mask: Optional[np.ndarray] = None) -> List[List[SearchHit]]:
-        queries = np.asarray(queries, dtype=np.float32)
-        if queries.ndim != 2:
-            raise ValueError("queries must be [B, dim]")
-        if queries.shape[1] != self._dim:
-            raise DimensionMismatchError(self._dim, queries.shape[1])
-        b = queries.shape[0]
-        if b == 0 or not self._id_to_slot:
-            return [[] for _ in range(b)]
-        # The padded batch is what the kernel routing reads (as in the
-        # reference), so keep the same bucket.
-        bb = next_bucket(b, base=8)
-        vals, idxs = self.raw_topk(pad_rows(queries, bb), k, mask=mask)
-        return self.hits_from_slots(vals[:b], idxs[:b])
+        with trace_span("index"):
+            queries = np.asarray(queries, dtype=np.float32)
+            if queries.ndim != 2:
+                raise ValueError("queries must be [B, dim]")
+            if queries.shape[1] != self._dim:
+                raise DimensionMismatchError(self._dim, queries.shape[1])
+            b = queries.shape[0]
+            if b == 0 or not self._id_to_slot:
+                return [[] for _ in range(b)]
+            # The padded batch is what the kernel routing reads (as in the
+            # reference), so keep the same bucket.
+            bb = next_bucket(b, base=8)
+            vals, idxs = self.raw_topk(pad_rows(queries, bb), k, mask=mask)
+            with trace_span("index.hits"):
+                return self.hits_from_slots(vals[:b], idxs[:b])
 
     def hits_from_slots(self, vals: np.ndarray, idxs: np.ndarray) -> List[List[SearchHit]]:
         out: List[List[SearchHit]] = []

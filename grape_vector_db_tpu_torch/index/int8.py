@@ -63,27 +63,27 @@ class Int8DeviceIndex(FlatDeviceIndex):
     def _rescore_count(self, k: int) -> int:
         return next_bucket(min(max(self.rescore, k), max(self.capacity, 1)), base=64)
 
+    def _int8_topk(self, q: torch.Tensor, mask: Optional[torch.Tensor],
+                   k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        r = self._rescore_count(k)
+        # factor folds the dequant scale and, for cosine, the norm
+        # division; dot keeps row magnitudes (dividing would make the
+        # stage-1 selection cosine and starve the exact-dot rescore of
+        # high-norm candidates)
+        if self.metric == "cosine":
+            factor = self.scales / torch.clamp(self.norms, min=1e-12)
+        else:
+            factor = self.scales
+        valid = self.valid if mask is None else self.valid & mask
+        cvals, cand = int8_topk(q, self.codes, factor, valid, k=r,
+                                chunk=min(131_072, self.capacity))
+        dist_proxy = torch.where(torch.isfinite(cvals), 0, INVALID_DIST)
+        return _rescore_topk(q, self.vectors, self.norms, cand, dist_proxy, k=k,
+                             metric=self.metric)
+
     def raw_topk(self, queries: np.ndarray, k: int,
                  mask: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
-        with self._lock:  # see FlatDeviceIndex.raw_topk
-            r = self._rescore_count(k)
-            q = torch.from_numpy(np.asarray(queries, dtype=np.float32)).to(self.device)
-            # factor folds the dequant scale and, for cosine, the norm
-            # division; dot keeps row magnitudes (dividing would make the
-            # stage-1 selection cosine and starve the exact-dot rescore of
-            # high-norm candidates)
-            if self.metric == "cosine":
-                factor = self.scales / torch.clamp(self.norms, min=1e-12)
-            else:
-                factor = self.scales
-            valid = self.valid if mask is None else self.valid & torch.from_numpy(
-                np.asarray(mask, dtype=bool)).to(self.device)
-            cvals, cand = int8_topk(q, self.codes, factor, valid, k=r,
-                                    chunk=min(131_072, self.capacity))
-            dist_proxy = torch.where(torch.isfinite(cvals), 0, INVALID_DIST)
-            vals, idxs = _rescore_topk(q, self.vectors, self.norms, cand, dist_proxy, k=k,
-                                       metric=self.metric)
-            return vals.cpu().numpy(), idxs.cpu().numpy()
+        return self._search_device(queries, k, mask, self._int8_topk)
 
     def get_stats(self):
         stats = super().get_stats()

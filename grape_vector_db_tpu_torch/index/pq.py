@@ -120,22 +120,22 @@ class PqDeviceIndex(FlatDeviceIndex):
         want = min(want, self.max_rescore, max(self.capacity, 1))
         return next_bucket(max(want, k), base=64)
 
+    def _pq_topk(self, q: torch.Tensor, mask: Optional[torch.Tensor],
+                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        r = self._rescore_count(k)
+        # the filter mask folds into the ADC prescan's validity
+        valid = self.valid if mask is None else self.valid & mask
+        vals, cand = adc_topk(q, self.codebooks, self.codes, self.norms, valid, k=r,
+                              chunk=min(65536, self.capacity))
+        dist_proxy = torch.where(torch.isfinite(vals), 0, INVALID_DIST)
+        return _rescore_topk(q, self.vectors, self.norms, cand, dist_proxy, k=k,
+                             metric=self.metric)
+
     def raw_topk(self, queries: np.ndarray, k: int,
                  mask: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
         if self.codebooks is None:
             return super().raw_topk(queries, k, mask=mask)  # exact until trained
-        with self._lock:
-            r = self._rescore_count(k)
-            q = torch.from_numpy(np.asarray(queries, dtype=np.float32)).to(self.device)
-            # the filter mask folds into the ADC prescan's validity
-            valid = self.valid if mask is None else self.valid & torch.from_numpy(
-                np.asarray(mask, dtype=bool)).to(self.device)
-            vals, cand = adc_topk(q, self.codebooks, self.codes, self.norms, valid, k=r,
-                                  chunk=min(65536, self.capacity))
-            dist_proxy = torch.where(torch.isfinite(vals), 0, INVALID_DIST)
-            fvals, fidx = _rescore_topk(q, self.vectors, self.norms, cand, dist_proxy, k=k,
-                                        metric=self.metric)
-            return fvals.cpu().numpy(), fidx.cpu().numpy()
+        return self._search_device(queries, k, mask, self._pq_topk)
 
     def get_stats(self):
         stats = super().get_stats()

@@ -7,8 +7,10 @@ p50/p95/p99 (metrics.rs:47-86), hit/miss counters, a 60s-window QPS calculator
 endpoint (same ``grape_vector_db_*`` metric names, metrics.rs:352-402) renders
 from this collector in the server layer.
 
-TPU addition: ``record_device_time`` tracks kernel wall time separately from
-end-to-end latency so HBM-bound kernels can be monitored against roofline.
+Port addition: always-on counters read from the objects that do the work
+(``add_counters``; an index's lock wait and device milliseconds, from a pair
+of CUDA events around each call) and the garbage collector's pauses by
+generation (``utils/tracing.py``), rendered beside the reference's metrics.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
+
+from grape_vector_db_tpu_torch.utils.tracing import gc_pause_seconds
 
 __all__ = ["PerformanceMetrics", "MetricsCollector", "QueryTimer"]
 
@@ -57,8 +61,8 @@ class MetricsCollector:
         self._cache_misses = 0
         self._inserts = 0
         self._deletes = 0
-        self._device_ms = 0.0
         self._gauges: Dict[str, float] = {}
+        self._counters: List[Callable[[], Dict[str, float]]] = []
 
     # -- recording ----------------------------------------------------------
 
@@ -89,9 +93,24 @@ class MetricsCollector:
         with self._lock:
             self._deletes += n
 
-    def record_device_time(self, ms: float) -> None:
+    def add_counters(self, read: Callable[[], Dict[str, float]]) -> None:
+        """Export the always-on counters ``read()`` returns (name -> value),
+        read afresh at each snapshot and summed by name over the sources."""
         with self._lock:
-            self._device_ms += ms
+            self._counters.append(read)
+
+    def counters(self) -> Dict[str, float]:
+        """The sources' counters, and the collector's pause seconds by
+        generation as ``gc_pause_seconds_total{generation="<g>"}``."""
+        with self._lock:
+            sources = list(self._counters)
+        out: Dict[str, float] = {}
+        for read in sources:
+            for name, val in read().items():
+                out[name] = out.get(name, 0.0) + val
+        for gen, secs in enumerate(gc_pause_seconds()):
+            out[f'gc_pause_seconds_total{{generation="{gen}"}}'] = secs
+        return out
 
     def set_gauge(self, name: str, value: float) -> None:
         with self._lock:
@@ -136,6 +155,7 @@ class MetricsCollector:
 
     def snapshot(self) -> PerformanceMetrics:
         self.record_hbm()
+        device_ms = self.counters().get("device_time_ms_total", 0.0)
         with self._lock:
             lats = sorted(self._latencies)
             self._trim(time.monotonic())
@@ -156,7 +176,7 @@ class MetricsCollector:
                 cache_misses=misses,
                 insert_count=self._inserts,
                 delete_count=self._deletes,
-                device_time_ms_total=self._device_ms,
+                device_time_ms_total=device_ms,
                 gauges=dict(self._gauges),
             )
 
@@ -182,6 +202,9 @@ class MetricsCollector:
             lines.append(f"{prefix}_{name} {val}")
         for g, val in m.gauges.items():
             lines.append(f"{prefix}_{g} {val}")
+        for name, val in self.counters().items():
+            if name != "device_time_ms_total":
+                lines.append(f"{prefix}_{name} {val}")
         return "\n".join(lines) + "\n"
 
 

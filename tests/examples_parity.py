@@ -54,8 +54,14 @@ MASKS = [
 # to run: (pattern, rule). The pattern's groups are what the rule compares.
 #   "any"     the groups may differ;
 #   "within"  each group is a number, and the two agree within RECALL_TOL;
+#   ("plus", n) the group is a count, the port's n more than the JAX
+#             example's (and equal to another run of the port's);
 #   "port"    the port's groups must be the values given with the rule.
 RECALL_TOL = 0.02
+# the /metrics names only the port exports: its index's lock wait and the
+# garbage collector's pauses by generation
+PORT_ONLY_METRICS = {"grape_vector_db_index_lock_wait_seconds_total"} | {
+    f'grape_vector_db_gc_pause_seconds_total{{generation="{g}"}}' for g in range(3)}
 LINE_RULES = {
     # the backend: the JAX line names its backend and says where to run
     # for the real ratio; the port's names the torch device
@@ -79,6 +85,10 @@ LINE_RULES = {
     "sharded_mesh_demo": [(re.compile(r"^devices: (\d+) x (\w+)$"), "any"),
                           (re.compile(r"^auto_shard upgraded 'flat' -> (\w+)$"),
                            ("port", ("flat",)))],
+    # the port's /metrics carries the reference's lines and a line for each
+    # of PORT_ONLY_METRICS besides
+    "single_node_server": [(re.compile(r"^metrics lines: (\d+)$"),
+                            ("plus", len(PORT_ONLY_METRICS)))],
 }
 
 # The cluster demos' leader is whichever node wins the first election, and
@@ -110,9 +120,10 @@ def masked(line):
     return line
 
 
-def compare(name, ref_out, port_out):
+def compare(name, ref_out, port_out, ref_is_jax=True):
     """Raise AssertionError, naming the two lines, where ``port_out`` differs
-    from ``ref_out`` other than the rules allow."""
+    from ``ref_out`` other than the rules allow; ``ref_is_jax`` false where
+    ``ref_out`` is another run of the port's."""
     j_lines, p_lines = ref_out.splitlines(), port_out.splitlines()
     assert len(j_lines) == len(p_lines), (j_lines, p_lines)
     j_status, p_status = [], []
@@ -135,6 +146,8 @@ def compare(name, ref_out, port_out):
             if rule == "within":
                 for a, b in zip(mj.groups(), mp.groups()):
                     assert abs(float(a) - float(b)) <= RECALL_TOL, (j, p)
+            elif rule[0] == "plus":
+                assert int(mp[1]) == int(mj[1]) + (rule[1] if ref_is_jax else 0), (j, p)
             elif rule != "any":
                 assert mp.groups() == rule[1], p
             break

@@ -1247,3 +1247,42 @@ def test_sharded_ivf_probe_runs_on_every_shard(cuda, kind):
         out.append((idx, hits, q))
     assert out[1][0]._id_to_cell == out[0][0]._id_to_cell
     assert_hits_match(out[0][1], out[1][1], 3e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flat", "binary", "int8"])
+def test_device_window_and_device_time_come_from_the_event_pair(cuda, kind):
+    """Each call's ``device`` span is its pair of CUDA events on the span
+    clock, inside the call's index span, and the always-on device time is
+    the sum of the pairs' elapsed times."""
+    from grape_vector_db_tpu_torch import Document, VectorDatabase, VectorDbConfig
+    from grape_vector_db_tpu_torch.utils import tracing
+
+    rows, dim = 16384, 128
+    cfg = VectorDbConfig(vector_dimension=dim)
+    cfg.index.kind = kind
+    db = VectorDatabase(config=cfg, device="cuda")
+    x = np.random.default_rng(9).standard_normal((rows, dim)).astype(np.float32)
+    db.batch_add_documents([Document(id=str(i), vector=x[i]) for i in range(rows)])
+    db.vector_search_batch(x[:4], 10)
+    before = db.index.counters()["device_time_ms_total"]
+    assert before > 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        for j in range(4):
+            assert db.vector_search_batch(x[j:j + 1], 10)[0][0].id == str(j)
+    spent = db.index.counters()["device_time_ms_total"] - before
+    records = tracing.spans()
+    windows = [s for s in records if s.name == tracing.DEVICE]
+    index = {s.span_id: s for s in records if s.name == "index"}
+    assert len(windows) == 4 and len(index) == 4
+    slack = 50_000   # ns: the anchor's error
+    for w in windows:
+        parent = index[w.parent_id]
+        assert w.call_id == parent.call_id
+        assert parent.t0_ns - slack <= w.t0_ns < w.t1_ns <= parent.t1_ns + slack
+    span_ms = sum(w.t1_ns - w.t0_ns for w in windows) / 1e6
+    assert spent > 0 and abs(span_ms - spent) <= 0.002 * len(windows)
+    text = db.metrics.prometheus_text()
+    line = next(v for v in text.splitlines()
+                if v.startswith("grape_vector_db_device_time_ms_total "))
+    assert float(line.split()[-1]) == pytest.approx(before + spent)

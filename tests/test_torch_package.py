@@ -24,7 +24,7 @@ COPIES = [
     "errors.py", "types.py", "config.py", "utils/__init__.py", "utils/buckets.py",
     "index/base.py", "storage/store.py", "engine/__init__.py", "engine/cache.py",
     "engine/filtering.py", "engine/sparse.py", "engine/hybrid.py",
-    "engine/performance.py", "engine/planner.py", "services/__init__.py",
+    "engine/performance.py", "services/__init__.py",
     "services/concurrent.py", "services/enterprise.py", "services/resilience.py",
     "embedded.py", "server/__init__.py", "server/proto/__init__.py",
     "server/proto/vector_db_pb2.py", "server/proto/vector_db.proto",
@@ -37,13 +37,32 @@ COPIES = [
 CODEC = "import msgpack -> from grape_vector_db_tpu_torch.storage import msgpack_codec as msgpack"
 # modules copied with some definitions changed: functions by name or by
 # their qualified name (``Class.method``, ``Class.method.Nested.method``), a
-# top-level import by its text, ``__doc__`` for the module docstring;
-# ``"a -> b"`` names a top-level import ``a`` of the original that the port
-# replaces by ``b``, and ``"+name"`` a function or import only the port has
+# top-level import by its text, a top-level class or assignment by its name,
+# ``__doc__`` for the module docstring; ``"a -> b"`` names a top-level import
+# ``a`` of the original that the port replaces by ``b``, and ``"+name"`` a
+# function, class, assignment or import only the port has
+TRACING = "grape_vector_db_tpu_torch.utils.tracing"
 CHANGED = [
-    ("services/metrics.py", ["record_hbm"]),
+    ("engine/planner.py", [f"+from {TRACING} import trace_span",
+                           "QueryEngine.vector_search_batch"]),
+    ("services/metrics.py", [
+        "__doc__",
+        "from typing import Deque, Dict, Optional, Tuple -> "
+        "from typing import Callable, Deque, Dict, List, Optional, Tuple",
+        f"+from {TRACING} import gc_pause_seconds", "MetricsCollector.__init__",
+        "record_device_time", "+add_counters", "+counters", "record_hbm", "snapshot",
+        "prometheus_text"]),
     ("services/embeddings.py", ["create_provider"]),
-    ("utils/tracing.py", ["__doc__", "import jax", "trace_span", "profile_to"]),
+    ("utils/tracing.py", [
+        "__doc__", "import jax", "+import gc", "+import itertools",
+        "+import threading", "+from collections import defaultdict",
+        "from typing import Iterator, Optional -> "
+        "from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple",
+        "+import torch", "+import torch.autograd.profiler as _profiler", "__all__",
+        "+MAX_RECORDS", "+DEVICE", "+GC", "+Span", "+_Stack", "+SpanRecorder", "+_RECORDER",
+        "+_annotation", "+_Span", "+_OFF", "trace_span", "+DeviceWindow", "+spans", "+dropped",
+        "+gc_pause_seconds", "+_covered", "+self_times", "+device_gaps",
+        "profile_to"]),
     ("server/grpc_server.py", ["VectorDbServicer.__init__"]),
     ("bench/suite.py", ["BenchmarkSuite.__init__", "BenchmarkSuite.build_dataset"]),
     ("cli.py", ["_mkdb", "cmd_benchmark", "cmd_performance_test",
@@ -142,6 +161,7 @@ def _definitions(src: str, names, port: bool) -> dict:
         found["__doc__"] = tree.body[0]
     funcs = []   # (qualified name, node)
     imports = {}  # text -> node, top level only
+    tops = {}    # name -> top-level class or assignment
 
     def visit(body, prefix):
         for node in body:
@@ -149,9 +169,15 @@ def _definitions(src: str, names, port: bool) -> dict:
                 funcs.append((prefix + node.name, node))
                 visit(node.body, prefix + node.name + ".")
             elif isinstance(node, ast.ClassDef):
+                if not prefix:
+                    tops[node.name] = node
                 visit(node.body, prefix + node.name + ".")
             elif isinstance(node, (ast.Import, ast.ImportFrom)) and not prefix:
                 imports[ast.unparse(node)] = node
+            elif isinstance(node, (ast.Assign, ast.AnnAssign)) and not prefix:
+                for t in getattr(node, "targets", [getattr(node, "target", None)]):
+                    if isinstance(t, ast.Name):
+                        tops[t.id] = node
 
     visit(tree.body, "")
     for name in names:
@@ -169,21 +195,21 @@ def _definitions(src: str, names, port: bool) -> dict:
         assert len(hits) <= 1, f"{key} names {len(hits)} functions: qualify it by its class"
         if hits:
             found[name] = hits[0]
+        elif key in tops:
+            found[name] = tops[key]
     return found
 
 
-def _without(src: str, nodes, added=()) -> str:
-    """``src`` with the lines of ``nodes`` cut out, and for the ``added``
-    ones (only the port has them) the blank lines before them too."""
-    lines = src.splitlines()
+def _without(src: str, nodes) -> str:
+    """``src`` with the lines of ``nodes`` (and their decorators) cut out,
+    and its blank lines: a definition only one side has may sit where the
+    other has a blank line between groups."""
     cut = set()
     for node in nodes:
         first = min([node.lineno] + [d.lineno for d in getattr(node, "decorator_list", [])])
         cut.update(range(first - 1, node.end_lineno))
-        while node in added and first >= 2 and not lines[first - 2].strip():
-            first -= 1
-            cut.add(first - 1)
-    return "\n".join(line for i, line in enumerate(lines) if i not in cut)
+    return "\n".join(line for i, line in enumerate(src.splitlines())
+                     if i not in cut and line.strip())
 
 
 @pytest.mark.parametrize("rel,names", CHANGED, ids=["-".join([r, *n]) for r, n in CHANGED])
@@ -194,8 +220,7 @@ def test_changed_module_matches_outside_its_function(rel, names):
     assert set(in_ref) == shared, f"{rel}: the original lacks {shared - set(in_ref)}"
     added = {n for n in names if n.startswith("+") or " -> " in n}
     assert added <= set(in_port), f"{rel}: the port lacks {added - set(in_port)}"
-    port_only = [node for name, node in in_port.items() if name.startswith("+")]
-    assert _without(port, in_port.values(), port_only) == _without(ref, in_ref.values())
+    assert _without(port, in_port.values()) == _without(ref, in_ref.values())
     for name, node in in_port.items():
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             assert "jax" not in ast.get_source_segment(port, node), f"{rel} {name}"

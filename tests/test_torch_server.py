@@ -37,6 +37,7 @@ from grape_vector_db_tpu.server.proto import vector_db_pb2 as jax_pb
 from grape_vector_db_tpu_torch.server import grpc_server as tgrpc
 from grape_vector_db_tpu_torch.server import rest as trest
 from grape_vector_db_tpu_torch.server.proto import vector_db_pb2 as pb
+from examples_parity import PORT_ONLY_METRICS
 from torch_parity import assert_hits_match
 
 torch.set_num_threads(2)
@@ -258,9 +259,10 @@ def test_grpc_document_rpcs_match_jax(both):
                       if line and not line.startswith("#")})
     assert "grape_vector_db_queries_total" in names[0]
     # the device memory gauges: the port samples only a process that uses
-    # CUDA, the JAX package its CPU devices
+    # CUDA, the JAX package its CPU devices; the port alone exports its
+    # index's lock wait and the collector's pauses
     assert ({n for n in names[0] if "hbm" not in n}
-            == {n for n in names[1] if "hbm" not in n})
+            == {n for n in names[1] if "hbm" not in n} | PORT_ONLY_METRICS)
 
 
 def test_grpc_cluster_and_shard_groups_match_jax(both):
