@@ -124,6 +124,13 @@ the port's paths through ``VectorDatabase`` on the card:
   versions at D = 128 on the int8 bandwidth index's and the ``ivf_int4``
   index's own planes.
 
+The asymmetric binary prescan's kernel (``csrc/asym.cu``, which replaces
+no Pallas kernel: the JAX package left that decode and product to XLA) is
+held against its plain version at the main path's shapes, q [8, 768] x
+1,048,576 and 262,144 rows of sign codes, and timed beside its library
+yardstick: the +-1 plane decoded once and kept on the card, one ``torch.mm``
+a 262,144-row chunk.
+
 B3, B4 and B5 are timed beside their nearest library composition (the probed
 lists' rows gathered, B4's codes cast and B5's nibbles unpacked to bf16,
 ``torch.bmm`` with f32 out, multiply, where).
@@ -253,6 +260,10 @@ KERNELS = {
                   "grape_vector_db_tpu/ops/ivf_pallas.py:477"),
     "hamming": ("grape_vector_db_tpu_torch/csrc/hamming.cu",
                 "grape_vector_db_tpu/ops/hamming_pallas.py:37"),
+    # the asym prescan's scoring: no Pallas kernel (XLA fused the JAX
+    # package's decode and product)
+    "asym": ("grape_vector_db_tpu_torch/csrc/asym.cu",
+             "none: grape_vector_db_tpu/ops/hamming.py asym_topk, left to XLA"),
     # B11 on the graph path: the search's launches (entry step, beam) and,
     # separately, the build's
     "gather_dots": ("grape_vector_db_tpu_torch/csrc/gather.cu",
@@ -330,6 +341,7 @@ def ptxas_summary(build_log: str):
                        line)
         f = re.search(r"Compiling entry function '.*fill_kernel", line)
         h = re.search(r"Compiling entry function '.*hamming_mma_kernel", line)
+        am = re.search(r"Compiling entry function '.*asym_mma_kernelILi(\d)E", line)
         g = re.search(r"Compiling entry function '.*gather_dots_kernelILi(\d)ELb(\d)E", line)
         gg = re.search(r"Compiling entry function '.*grouped_kernelILb(\d)E", line)
         gp = re.search(r"Compiling entry function '.*group\d+(dedup_count|offsets|scatter|expand)"
@@ -348,6 +360,8 @@ def ptxas_summary(build_log: str):
                         i4[1], "ivf_group (int8 / int4 grouping pass)")
         elif h:
             name = "hamming (b1 mma)"
+        elif am:
+            name = f"asym (bf16 mma, {am[1]} n8 query tiles a warp)"
         elif g:
             name = (f"gather_dots pairs<{fmts[g[1]]}, "
                     f"{'16-byte' if g[2] == '1' else 'element'} loads>")
@@ -440,7 +454,7 @@ def setup():
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     builds = (segmax.build_kernels, segmax.build_max_kernel, ivf.build_kernels,
-              hamming.build_kernels, gather.build_kernels)
+              hamming.build_kernels, hamming.build_asym_kernel, gather.build_kernels)
     if PARENT:
         builds += (lambda: parent_lib("hamming"), lambda: parent_lib("ivf_probe"))
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source
@@ -448,7 +462,7 @@ def setup():
             fut.result()
     log(f"[setup] kernels built in {time.perf_counter() - t0:.2f} s (in parallel)"
         + (f"; the parent's B4, B5 and B6 from {PARENT}" if PARENT else ""))
-    for name in ("segmax", "segmax_max", "ivf_probe", "hamming", "gather"):
+    for name in ("segmax", "segmax_max", "ivf_probe", "hamming", "asym", "gather"):
         info = _build.BUILD_INFO[name]
         log(f"[setup] {name}: {info['library']}, {info['seconds']:.2f} s")
         for entry in ptxas_summary(str(info["log"])):
@@ -1100,6 +1114,66 @@ def hamming_phase():
     else:
         log("[times] hamming: the parent's kernel not timed (no --parent)")
     return stats
+
+
+# -- the asym prescan's kernel against its plain version -----------------------------
+
+
+def asym_phase():
+    """The asym kernel against its plain version at the main path's shapes:
+    q [8, 768] bf16 (a serial search padded to 8) x 1,048,576 rows of sign
+    codes (the binary index's capacity, one launch) and x 262,144 (a chunk);
+    each score within the f32 order bound 2 * D * 2^-24 * sum |q|, invalid
+    rows exactly -inf. Times the kernel and the plain version in turns and the
+    library yardstick: the +-1 plane decoded once and kept on the card (1.5 GB
+    at 1M rows), one torch.mm a 262,144-row chunk."""
+    from grape_vector_db_tpu_torch.ops import hamming
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    b, c, d = 8, N_ROWS, DIM
+    w = hamming.words_per_vector(d)
+    q = torch.randn((b, d), generator=gen, device=dev)
+    qb = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    codes = random_words(gen, c, w, dev)
+    valid = torch.rand(c, generator=gen, device=dev) > 0.05
+    tol = 2 * d * 2.0**-24 * float(qb.float().abs().sum(dim=1).max())
+    stats = {}
+    for rows in (c, HAMMING_ROWS):
+        cc, vv = codes[:rows], valid[:rows]
+        before = hamming.LAUNCHES["asym"]
+        got = hamming.asym_scores(qb, cc, vv)
+        torch.cuda.synchronize()
+        require(hamming.LAUNCHES["asym"] == before + 1, "asym: one call, one launch")
+        want = hamming.asym_scores_ref(qb, cc, vv)
+        fin = torch.isfinite(want)
+        require(torch.equal(fin, torch.isfinite(got)) and bool((got[~fin] == -np.inf).all()),
+                f"asym at {rows} rows: the invalid rows differ")
+        err = float((got - want).abs()[fin].max())
+        require(err <= tol, f"asym at {rows} rows: gap {err:.3g} above the bound {tol:.3g}")
+        del got, want
+        (k1, k2), (p1, p2) = in_turns(lambda: hamming.asym_scores(qb, cc, vv),
+                                      lambda: hamming.asym_scores_ref(qb, cc, vv), 20, 3)
+        # bytes: the codes and validity read once, the query, the f32 plane
+        # written; the +-1 product at the bf16 peak
+        nbytes = rows * (w * 4 + 1) + b * d * 2 + b * rows * 4
+        entry = {"max_abs_err": err, "bound_of_err": tol, "ms": (k1 + k2) / 2,
+                 "plain_ms": (p1 + p2) / 2, **bound(nbytes, 2.0 * b * rows * d)}
+        plane = hamming._unpack_signs(cc)[:, :d]
+        step = HAMMING_ROWS
+        entry["library_ms"] = cuda_ms(lambda: [
+            torch.mm(qb, plane[lo:lo + step].T, out_dtype=torch.float32)
+            for lo in range(0, rows, step)], 10)
+        del plane
+        stats[rows] = entry
+        log(f"[kernels] asym [{b},{d}] bf16 x [{rows},{w}] words: within {err:.3g} of the plain "
+            f"version (bound {tol:.3g}), invalid rows -inf")
+        log(f"[times] asym at {rows} rows: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+            f"{p2:.4f} ms, library (the plane kept, torch.mm a {step}-row chunk) "
+            f"{entry['library_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms by "
+            f"{entry['bound_by']}")
+    main, chunk = stats[c], stats[HAMMING_ROWS]
+    return {**main, "rows": c, f"at_{HAMMING_ROWS}": chunk}
 
 
 # -- the flat path ----------------------------------------------------------------
@@ -1946,6 +2020,7 @@ def binary_path():
         f"two-stage, Hamming-only, codes-only; 4 x filtered 10%; deleted 1000, both "
         f"two-stage again); kernel launches {launches}")
     require(launches["hamming"] > 0, "the binary popcount path never launched hamming")
+    require(launches["asym"] > 0, "the binary asym path never launched the asym kernel")
 
     # oracles
     (o_vals, o_ids), (f_vals, f_ids) = oracle(itertools.islice(corpus_batches(), batches),
@@ -2014,7 +2089,7 @@ def binary_path():
         f"r={pop._rescore_count(10)}) {dev_ms:.3f} ms; ingest "
         f"{rows / ingest_s:.0f} docs/s")
     db.close()
-    return launches["hamming"]
+    return launches["hamming"], launches["asym"]
 
 
 # -- the kernel-free kinds at SMALL_ROWS rows ------------------------------------------
@@ -4446,6 +4521,8 @@ def main():
     probe_adversarial()
     kernel_stats["hamming"] = hamming_phase()
     torch.cuda.empty_cache()
+    kernel_stats["asym"] = asym_phase()
+    torch.cuda.empty_cache()
     launches, flat_db = flat_path()
     launches.update(variant_launches)
     server_stats, server_s = server_path(flat_db)
@@ -4487,7 +4564,7 @@ def main():
     flat_counts, flat_planes = sharded_flat_part()
     torch.cuda.empty_cache()
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
-    launches["hamming"] = binary_path()
+    launches["hamming"], asym_binary = binary_path()
     torch.cuda.empty_cache()
     log(f"[time] {time.perf_counter() - t_start:.1f} s so far")
     corpora = {c.name: c for c in small_corpora()}
@@ -4539,6 +4616,10 @@ def main():
             kernel_stats["ivf_group"]["d128"] = {
                 "path": d128["path"], "launches": d128["launches"], **group}
     group_launches["examples"] = ex_launches["ivf_group"]
+    asym_paths = {"binary": asym_binary, "examples": ex_launches["asym"]}
+    launches["asym"] = sum(asym_paths.values())
+    kernel_stats["asym"]["launches_by_path"] = asym_paths
+    log(f"[kernels] asym launches by path: {asym_paths}")
     log(f"[kernels] examples phase launches by example: {example_counts}")
     by_path = {"segmax4": {"flat": flat_b1, "server": server_stats["segmax4"]["launches"],
                            "embedded": embedded_b1["launches"],

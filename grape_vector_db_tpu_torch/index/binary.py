@@ -31,7 +31,7 @@ import torch
 from grape_vector_db_tpu_torch.errors import DimensionMismatchError
 from grape_vector_db_tpu_torch.index.base import IndexStats, SearchHit
 from grape_vector_db_tpu_torch.index.flat import FlatDeviceIndex, grow_rows
-from grape_vector_db_tpu_torch.ops.distance import prepare_queries
+from grape_vector_db_tpu_torch.ops.distance import MAX_SCORE_ELEMS, prepare_queries
 from grape_vector_db_tpu_torch.ops.hamming import (INVALID_DIST, asym_topk, hamming_topk,
                                                    pack_bits, words_per_vector)
 from grape_vector_db_tpu_torch.utils.buckets import next_bucket, pad_rows
@@ -158,6 +158,16 @@ class BinaryDeviceIndex(FlatDeviceIndex):
         which bounds the +-1 decode's transient (the reference's rule)."""
         return min(self.capacity, 262_144)
 
+    def _asym_chunk(self, b: int) -> int:
+        """Rows one asym prescan step scores for b queries. The card's kernel
+        decodes in registers, so one launch takes as many rows as its [b, rows]
+        f32 scores may hold (the whole 1M capacity at b = 8: one selection
+        beats four and a merge, PERF.md); the plain version keeps the
+        decode's bound."""
+        if self.codes.is_cuda:
+            return max(self._scan_chunk(), MAX_SCORE_ELEMS // b)
+        return self._scan_chunk()
+
     def _rescore_count(self, k: int) -> int:
         n = len(self)
         want = max(k, int(self.rescore_ratio * n))
@@ -173,14 +183,15 @@ class BinaryDeviceIndex(FlatDeviceIndex):
         if not self.keep_vectors:
             # capacity config: the prescan ranking is the result
             if self.prescan == "asym":
-                vals, idxs = asym_topk(q, self.codes, valid, k=k, chunk=chunk)
+                vals, idxs = asym_topk(q, self.codes, valid, k=k,
+                                       chunk=self._asym_chunk(q.shape[0]))
                 # similarity = cosine against the decoded sign vector
                 return vals / float(np.sqrt(self._dim)), idxs
             return hamming_topk(pack_bits(q, self.threshold), self.codes, valid, k=k,
                                 chunk=chunk, impl=self.hamming_impl)
         r = self._rescore_count(k)
         if self.prescan == "asym":
-            pv, cand = asym_topk(q, self.codes, valid, k=r, chunk=chunk)
+            pv, cand = asym_topk(q, self.codes, valid, k=r, chunk=self._asym_chunk(q.shape[0]))
             # the rescore's validity channel is the Hamming plane;
             # synthesize it from the -inf padding sentinel
             dists = torch.where(torch.isfinite(pv), 0, INVALID_DIST)

@@ -1,6 +1,6 @@
 """Device ops in PyTorch: distance scoring + top-k (``distance``), the
 segment top-k kernels of the large-corpus exact engine (``segmax``), the
-binary prescans and the Hamming kernel (``hamming``), int8 / int4 / PQ
+binary prescans and their asym and Hamming kernels (``hamming``), int8 / int4 / PQ
 quantization and scans (``int8``, ``int4``, ``pq``), k-means, the IVF
 probe kernels and filter tiers (``ivf``, ``ivf_scan``), and graph search
 (``graph``) with its candidate gather-dot kernel (``gather``) and the

@@ -25,6 +25,14 @@ JAX array gives the port's codes, and back).
 adds one to ``LAUNCHES["hamming"]`` per launch. Selections are exact and
 break ties on the lower slot, as the reference's ``lax.top_k`` does (and its
 ``approx_max_k``, which is exact off the TPU).
+
+``asym_topk``, the asymmetric prescan, scores ``bf16(q_unit)`` against the
++-1 signs in f32 through ``asym_scores``: on a CUDA tensor the hand-written
+kernel of ``csrc/asym.cu`` (bf16 tensor cores, the signs built in registers
+from the packed words; it replaces no Pallas kernel: the reference left the
+decode and product to XLA, which fuses them), which adds one to
+``LAUNCHES["asym"]`` per launch or raises; on a CPU tensor the plain version
+``asym_scores_ref`` (decode to a +-1 bf16 plane, one product).
 """
 
 from __future__ import annotations
@@ -38,15 +46,16 @@ from grape_vector_db_tpu_torch.ops import _build
 from grape_vector_db_tpu_torch.ops.distance import _pad_k, chunked_topk, f32_dots
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "build_kernels", "INVALID_DIST",
-           "words_per_vector", "pack_bits", "hamming_scores",
-           "hamming_popcount", "hamming_scores_ref", "hamming_topk", "asym_topk"]
+           "build_asym_kernel", "words_per_vector", "pack_bits", "hamming_scores",
+           "hamming_popcount", "hamming_scores_ref", "hamming_topk", "asym_scores",
+           "asym_scores_ref", "asym_topk"]
 
 #: Distance of an invalid row (sorts after every real distance).
 INVALID_DIST = 2**30
 NEG_INF = float("-inf")
 
 #: Kernel launches per wrapper since the last reset (CUDA tensors only).
-LAUNCHES: Dict[str, int] = {"hamming": 0}
+LAUNCHES: Dict[str, int] = {"hamming": 0, "asym": 0}
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +78,17 @@ def _bind(lib: ctypes.CDLL) -> None:
 def build_kernels() -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/hamming.cu``."""
     return _build.load("hamming", _bind)
+
+
+def _bind_asym(lib: ctypes.CDLL) -> None:
+    lib.gvdb_asym.restype = ctypes.c_int
+    lib.gvdb_asym.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                              + [ctypes.c_void_p])
+
+
+def build_asym_kernel() -> ctypes.CDLL:
+    """Build (once per source hash) and load ``csrc/asym.cu``."""
+    return _build.load("asym", _bind_asym)
 
 
 # -- packing ------------------------------------------------------------------
@@ -208,6 +228,53 @@ def hamming_topk(
     return _pad_k(dv, sv, k, INVALID_DIST)
 
 
+# -- the asymmetric scan: kernel, plain version, wrapper ----------------------------
+
+
+def asym_scores_ref(qb: torch.Tensor, codes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of the asym kernel: [B, D] bf16 x [C, W] int32 words ->
+    [B, C] f32 of ``dot(qb, sign(x))`` (the codes decoded to a +-1 bf16
+    plane, one f32-accumulated product); -inf where ``valid`` [C] is false."""
+    # padding coords decode to -1; q has no lanes there
+    dots = f32_dots(qb, _unpack_signs(codes)[:, :qb.shape[1]])
+    return torch.where(valid[None, :], dots, NEG_INF)
+
+
+def _launch_asym(qb: torch.Tensor, codes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    dev = codes.device
+    if dev.type != "cuda" or qb.device != dev or valid.device != dev:
+        raise ValueError("asym: the query, codes and valid must lie on one CUDA device")
+    if qb.dtype != torch.bfloat16 or codes.dtype != torch.int32 or valid.dtype != torch.bool:
+        raise ValueError(f"asym: needs a bf16 query, int32 codes and a bool mask, got "
+                         f"{qb.dtype}, {codes.dtype} and {valid.dtype}")
+    b, d = qb.shape
+    c = codes.shape[0]
+    if (codes.ndim != 2 or codes.shape[1] != words_per_vector(d) or valid.shape != (c,)
+            or b < 1 or c < 1 or d < 1):
+        raise ValueError(f"asym: shapes query {tuple(qb.shape)}, codes {tuple(codes.shape)} "
+                         f"and valid {tuple(valid.shape)} disagree or are empty")
+    qc, cc, vc = qb.contiguous(), codes.contiguous(), valid.contiguous()
+    lib = build_asym_kernel()
+    out = torch.empty((b, c), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.gvdb_asym(dev.index or 0, qc.data_ptr(), cc.data_ptr(), vc.data_ptr(),
+                       out.data_ptr(), b, c, d, stream)
+    if rc != 0:
+        raise RuntimeError(f"asym kernel launch failed: "
+                           f"{lib.gvdb_cuda_error_string(rc).decode()} ({rc})")
+    LAUNCHES["asym"] += 1
+    return out
+
+
+def asym_scores(qb: torch.Tensor, codes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[B, D] bf16 x [C, W] int32 words -> [B, C] f32 ``dot(qb, sign(x))``,
+    -inf where ``valid`` is false. CUDA tensors run the kernel (or raise);
+    CPU tensors the plain version."""
+    if codes.device.type == "cpu":
+        return asym_scores_ref(qb, codes, valid)
+    return _launch_asym(qb, codes, valid)
+
+
 def asym_topk(
     queries: torch.Tensor,  # [B, D] f32 raw (normalized here)
     codes: torch.Tensor,    # [N, W] int32 (capacity-padded)
@@ -218,15 +285,9 @@ def asym_topk(
     """Asymmetric binary prescan: top-k LARGEST ``dot(bf16(q_unit), sign(x))``
     in f32, a chunk at a time, then a merge. Returns (scores [B, k] f32
     descending, slots [B, k] int64); invalid rows score -inf."""
-    d = queries.shape[1]
     qf = queries.to(torch.float32)
     qn = qf / torch.clamp(torch.linalg.vector_norm(qf, dim=1, keepdim=True), min=1e-12)
     qb = qn.to(torch.bfloat16)
-
-    def score(lo, hi):
-        # padding coords decode to -1; q has no lanes there
-        dots = f32_dots(qb, _unpack_signs(codes[lo:hi])[:, :d])
-        return torch.where(valid[None, lo:hi], dots, NEG_INF)
-
-    v, s = chunked_topk(score, codes.shape[0], chunk, k)
+    v, s = chunked_topk(lambda lo, hi: asym_scores(qb, codes[lo:hi], valid[lo:hi]),
+                        codes.shape[0], chunk, k)
     return _pad_k(v, s, k)

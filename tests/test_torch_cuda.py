@@ -703,6 +703,118 @@ def test_popcount_route_raises_when_the_kernel_cannot_load(cuda, monkeypatch):
         tham._launch(q.float(), q)
 
 
+def _asym_case(cuda, b, c, d, pattern="random", seed=0):
+    """A unit bf16 query [b, d] (zero for "zero_query"), [c, ceil(d / 32)]
+    int32 codes (random, or all-zero / all-one words) and a mask with about
+    a tenth of the rows invalid."""
+    g = np.random.default_rng(seed * 7919 + b * 31 + c + d)
+    q = g.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    if pattern == "zero_query":
+        q[:] = 0
+    w = tham.words_per_vector(d)
+    codes = _words(g, c, w, "random" if pattern in ("random", "zero_query") else pattern)
+    valid = torch.from_numpy(g.random(c) > 0.1)
+    return (torch.from_numpy(q).to(cuda).to(torch.bfloat16), codes.to(cuda), valid.to(cuda))
+
+
+def _asym_tolerance(qb):
+    """[B, 1] allowed gap between the kernel's and the plain version's score:
+    each product bf16 x +-1 is exact, and a sum of D of them in f32, in any
+    order, lies within D * 2^-24 * sum |q| of the exact sum, so two orders
+    lie within twice that."""
+    d = qb.shape[1]
+    return 2 * d * 2.0**-24 * qb.float().abs().sum(dim=1, keepdim=True)
+
+
+def _assert_asym_equal(got, want, qb):
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert bool((got[~fin] == float("-inf")).all())
+    gap = torch.where(fin, (got - want).abs(), 0.0)
+    assert bool((gap <= _asym_tolerance(qb)).all()), float(gap.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 1000, 4097, 262_143, 1_048_576])
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 128, 256])
+def test_asym_kernel_matches_plain(cuda, b, c):
+    """The asym kernel against its plain version at D = 768, random codes,
+    a tenth of the rows invalid (exactly -inf): B = 1 .. 256 (one, two and
+    four n8 tiles a warp, ragged query tiles), C not a multiple of the
+    kernel's 128-row tile, up to the 1M capacity the index scores in one
+    launch. One launch each."""
+    q, codes, valid = _asym_case(cuda, b, c, 768)
+    before = tham.LAUNCHES["asym"]
+    got = tham.asym_scores(q, codes, valid)
+    torch.cuda.synchronize()
+    assert tham.LAUNCHES["asym"] == before + 1
+    _assert_asym_equal(got, tham.asym_scores_ref(q, codes, valid), q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["random", "zeros", "ones", "zero_query"])
+@pytest.mark.parametrize("d", [768, 64, 100, 1040])
+@pytest.mark.parametrize("b,c", [(9, 4097), (128, 1000), (1, 262_143)])
+def test_asym_kernel_widths_and_patterns(cuda, b, c, d, pattern):
+    """D = 64, 100 (lanes past D in the last word must add nothing), 768 and
+    1040 (33 words: two staged chunks, the second of one word); all-zero and
+    all-one codes (every sign -1 or +1) and an all-zero query."""
+    q, codes, valid = _asym_case(cuda, b, c, d, pattern)
+    got = tham.asym_scores(q, codes, valid)
+    torch.cuda.synchronize()
+    want = tham.asym_scores_ref(q, codes, valid)
+    _assert_asym_equal(got, want, q)
+    if pattern == "zero_query":
+        assert bool((got[torch.isfinite(got)] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c", [(8, 1_048_576), (128, 262_144)])
+def test_asym_kernel_top_r_matches_plain(cuda, b, c):
+    """The top-4,096 slots of the kernel's scores and of the plain version's
+    are the same rows, except rows whose plain score lies within the gap
+    bound of the r-th (where the two sum orders may swap them)."""
+    q, codes, valid = _asym_case(cuda, b, c, 768, seed=1)
+    got = tham.asym_scores(q, codes, valid)
+    want = tham.asym_scores_ref(q, codes, valid)
+    r = 4096
+    kth = torch.topk(want, r, dim=1).values[:, -1:]
+    tol = 2 * _asym_tolerance(q)
+    for row in range(b):
+        a = set(torch.topk(got[row], r).indices.tolist())
+        e = set(torch.topk(want[row], r).indices.tolist())
+        for slot in a ^ e:
+            assert abs(float(want[row, slot]) - float(kth[row])) <= float(tol[row]), (row, slot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep_vectors", [True, False])
+def test_asym_route_raises_when_the_kernel_cannot_load(cuda, monkeypatch, keep_vectors):
+    """A CUDA tensor launches the asym kernel or raises; it never falls back
+    to the plain version, through the op or through the index (two-stage and
+    codes-only)."""
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(tham, "build_asym_kernel", no_library)
+    q, codes, valid = _asym_case(cuda, 2, 64, 64)
+    before = tham.LAUNCHES["asym"]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tham.asym_scores(q, codes, valid)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tham.asym_topk(q.float(), codes, valid, k=3)
+    idx = BinaryDeviceIndex(64, prescan="asym", keep_vectors=keep_vectors, device=cuda)
+    idx.add_batch(["a", "b"], np.eye(2, 64, dtype=np.float32))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        idx.search_batch(np.eye(2, 64, dtype=np.float32), 1)
+    assert tham.LAUNCHES["asym"] == before
+    with pytest.raises(ValueError, match="bf16"):
+        tham._launch_asym(q.float(), codes, valid)
+    with pytest.raises(ValueError, match="disagree"):
+        tham._launch_asym(q[:, :32], codes, valid)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("prescan,impl", [("hamming", "popcount"), ("hamming", "mxu"),
                                           ("asym", "mxu")])
@@ -721,6 +833,7 @@ def test_binary_index_on_cuda_matches_cpu(cuda, prescan, impl):
         idx.remove_batch(ids[:30])
         hits.append((idx.search_batch(q, 10), idx.hamming_only_topk(q, 10)))
     assert tham.LAUNCHES["hamming"] == (2 if impl == "popcount" else 0)
+    assert (tham.LAUNCHES["asym"] >= 1) == (prescan == "asym")
     for got, want in zip(*hits):
         for a, b in zip(got, want):
             assert [i for i, _ in a] == [i for i, _ in b]
