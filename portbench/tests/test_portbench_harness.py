@@ -8,8 +8,10 @@ import ast
 import json
 import os
 import sys
+import time
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -38,6 +40,155 @@ def test_traced_rehearsal_records_the_layers_spans():
     res = runner.run_cell(cell, seed=11, seconds=0.5, trace=True, rehearse=True)
     assert res["correct"] is True and res["metrics"] == {}
     assert res["rehearsal"]["spans"] >= 4 * res["rehearsal"]["calls"]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_optimize_runs_once_after_the_last_batch_before_the_window(name, monkeypatch):
+    from grape_vector_db_tpu_torch import VectorDatabase
+
+    cell = bench.load_cell(name)
+    seen, windows = [], []
+    orig_optimize, drv = VectorDatabase.optimize, cell.driver()
+    orig_run = drv.run
+
+    def spy_optimize(self):
+        seen.append((time.perf_counter(), len(self.index)))
+        return orig_optimize(self)
+
+    def spy_run(*args, **kwargs):
+        windows.append(orig_run(*args, **kwargs))
+        return windows[-1]
+
+    monkeypatch.setattr(VectorDatabase, "optimize", spy_optimize)
+    monkeypatch.setattr(drv, "run", spy_run)
+    res = runner.run_cell(cell, seed=2**31 + 19, seconds=0.5, trace=False, rehearse=True)
+    assert res["correct"] is True
+    (t, stored), = seen
+    assert stored == runner.REHEARSAL["rows"]   # after the last batch
+    assert t < windows[0]["t_start"]
+
+
+#: A trained kind's deployment at a small nlist, with the ratio of
+#: VectorDBBench's 1M corpus over nlist 4,096: a mean of 256 rows a list
+#: against a first list capacity of 128.
+IVF_CONFIG = {
+    "name": "ivf-test",
+    "dataset": {"rows": 16384, "dim": 128, "metric": "cosine", "centres": 512, "noise": 0.25},
+    "db": {"vector_dimension": 128, "distance": "cosine",
+           "index": {"kind": "ivf", "initial_capacity": 4096, "nlist": 64, "nprobe": 8},
+           "device": {"storage_dtype": "bfloat16", "growth_factor": 2,
+                      "search_mode": "exact"}},
+    "index_attrs": {"kind": "ivf", "nlist": 64, "nprobe": 8},
+    "ingest": {"batch": 8192},
+}
+
+
+class IvfStandIn:
+    """A reference of the IVF cell to come, judged as VectorDBBench judges
+    an approximate index: by the share of the exact top k (the flat
+    reference's, from the corpus alone) that a call's answers miss, beside
+    ``flat.judge``'s score gap and faulty answers. It reads nothing of the
+    index."""
+
+    def __init__(self):
+        self.flat = bench.load_module("reference", "flat")
+        self.C = bench.load_module("reference", "common")
+
+    def prepare(self, x, config):
+        return self.flat.prepare(x, config)
+
+    def judge(self, rows, config, queries, k, ids, scores):
+        got = self.flat.judge(rows, config, queries, k, ids, scores)
+        qu = self.C.unit_queries(queries, rows.x.device, config["db"]["device"]["storage_dtype"])
+        exact = self.flat.exact_topk(qu, rows, k)[1].cpu().numpy()
+        hit = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(ids, exact))
+        return {"score_gap": got["score_gap"], "bad_hits": got["bad_hits"],
+                "recall_miss": 1.0 - hit / exact.size}
+
+    def control(self, rows, config, queries, k):
+        return self.flat.control(rows, config, queries, k)
+
+
+IVF_LIMITS = {"score_gap": {"limit": 2e-4}, "recall_miss": {"limit": 0.5},
+              "bad_hits": {"limit": 0}, "ingest_missing": {"limit": 0}}
+
+
+def ivf_cell():
+    cell = bench.Cell(name="ivf-test.batch1000-k10", chips=1, config=IVF_CONFIG,
+                      traffic=bench.load_cell("flat1m.batch1000-k10").traffic,
+                      limits=IVF_LIMITS, end_to_end=[], per_layer=[])
+    cell.reference = IvfStandIn
+    return cell
+
+
+@pytest.fixture(scope="module")
+def ivf_traced():
+    """One traced rehearsal of the IVF cell: its result, its spans, and the
+    overflow region's rows once the set-up's ``optimize()`` returned."""
+    from grape_vector_db_tpu_torch import VectorDatabase
+
+    made, overflow = [], []
+    orig_optimize = VectorDatabase.optimize
+
+    class KeptSpans(trace.Spans):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    def spy_optimize(self):
+        orig_optimize(self)
+        overflow.append(len(self.index._overflow))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(runner, "Spans", KeptSpans)
+        mp.setattr(VectorDatabase, "optimize", spy_optimize)
+        res = runner.run_cell(ivf_cell(), seed=2**31 + 23, seconds=0.5, trace=True,
+                              rehearse=True)
+    return res, made[0], overflow
+
+
+def test_a_traced_run_wraps_only_the_methods_the_index_has(ivf_traced):
+    res, spans, overflow = ivf_traced
+    assert res["correct"] is True and res["rehearsal"]["checked_calls"] >= 1
+    assert overflow == [0]                  # the load's optimize() absorbed it
+    names = {r[0] for r in spans.records}
+    assert {"planner", "index"} <= names
+    assert "index.device" not in names and "index.hits" not in names
+
+
+def test_the_ivf_ingest_spills_until_optimize():
+    from grape_vector_db_tpu_torch import VectorDatabase
+
+    x = np.random.default_rng(5).standard_normal((16384, 128)).astype(np.float32)
+    db = VectorDatabase(config=runner.db_config(IVF_CONFIG["db"]), device="cpu")
+    try:
+        runner.ingest(db, x, IVF_CONFIG["ingest"]["batch"])
+        assert len(db.index._overflow) > 0 and db.index.list_cap == 128
+        db.optimize()
+        assert len(db.index._overflow) == 0 and db.index.list_cap > 128
+    finally:
+        db.close()
+
+
+def test_a_number_of_the_references_own_reaches_the_checks(ivf_traced):
+    from portbench import calibrate
+
+    res, _, _ = ivf_traced
+    assert set(res["checks"]) == set(IVF_LIMITS)
+    assert 0.0 <= res["checks"]["recall_miss"]["value"] <= 0.5
+    numbers = calibrate.control_numbers(ivf_cell(), seed=2**31 + 23, device="cpu",
+                                        rehearse=True)
+    checks, _ = runner.judge_limits(numbers, IVF_LIMITS)
+    assert {"score_gap", "recall_miss", "bad_hits"} <= set(checks)
+
+
+def test_fold_sums_faults_and_keeps_the_widest_of_every_other_number():
+    out = {"score_gap": 0.0, "rank_gap": 0.0, "bad_hits": 0}
+    runner.fold(out, {"score_gap": 2e-5, "bad_hits": 1, "recall_miss": 0.1,
+                      "distinct_rows": 7})
+    runner.fold(out, {"score_gap": 1e-5, "bad_hits": 2, "recall_miss": 0.3,
+                      "distinct_rows": 9})
+    assert out == {"score_gap": 2e-5, "rank_gap": 0.0, "bad_hits": 3, "recall_miss": 0.3}
 
 
 def test_run_py_refuses_without_a_card(capsys):
