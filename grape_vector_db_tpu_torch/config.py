@@ -59,6 +59,9 @@ class IndexConfig:
     # IVF parameters
     nlist: int = 256
     nprobe: int = 16
+    # Rows the IVF kinds' k-means trains on (a seeded subsample above it);
+    # FAISS trains on up to 256 a list
+    ivf_train_size: int = 50_000
     # Device array growth
     initial_capacity: int = 4096
     # When kind="binary"/"pq": candidates rescored = max(limit, rescore_ratio * n)

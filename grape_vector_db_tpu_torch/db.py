@@ -109,8 +109,9 @@ def _build_sharded_index(kind: str, config: VectorDbConfig, mesh,
                   metric=config.distance, storage_dtype=dev.storage_dtype,
                   initial_capacity=config.index.initial_capacity,
                   growth_factor=dev.growth_factor, nlist=config.index.nlist,
-                  nprobe=config.index.nprobe, search_mode=dev.search_mode,
-                  recall_target=dev.recall_target, use_pallas=dev.use_pallas)
+                  nprobe=config.index.nprobe, train_size=config.index.ivf_train_size,
+                  search_mode=dev.search_mode, recall_target=dev.recall_target,
+                  use_pallas=dev.use_pallas)
     if kind == "sharded_ivf":
         return pmesh.ShardedIvfIndex(config.vector_dimension, **common)
     codes = dict(common, rescore=config.index.int8_rescore,
@@ -169,7 +170,8 @@ def build_index(config: VectorDbConfig, device: str | torch.device = "cuda",
         return GraphDeviceIndex(**common, m=config.index.m,
                                 ef_search=config.index.ef_search,
                                 ef_construction=config.index.ef_construction)
-    ivf = dict(common, nlist=config.index.nlist, nprobe=config.index.nprobe)
+    ivf = dict(common, nlist=config.index.nlist, nprobe=config.index.nprobe,
+               train_size=config.index.ivf_train_size)
     if kind == "ivf":
         return IvfDeviceIndex(**ivf)
     if kind == "ivf_pq":

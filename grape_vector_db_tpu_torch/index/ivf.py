@@ -24,6 +24,7 @@ padding slots).
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,6 +38,7 @@ from grape_vector_db_tpu_torch.ops.ivf import (NEG_INF, _pad_k, ivf_topk, make_r
                                                nblocks_from_counts)
 from grape_vector_db_tpu_torch.ops.kmeans import assign_clusters, kmeans
 from grape_vector_db_tpu_torch.utils.buckets import next_bucket, pad_rows
+from grape_vector_db_tpu_torch.utils.tracing import DeviceWindow, trace_span
 
 __all__ = ["IvfDeviceIndex"]
 
@@ -130,6 +132,8 @@ class IvfDeviceIndex(VectorIndex):
         self.kmeans_iters = kmeans_iters
         self.device = torch.device(device)
         self._lock = threading.RLock()
+        self.lock_wait_s = 0.0   # seconds searches waited for the lock
+        self._window: Optional[DeviceWindow] = None   # made at a CUDA index's first search
         # list capacity starts small and doubles on overflow pressure; kept
         # a multiple of 128 as in the reference, so both spill alike
         self.list_cap = max(128, next_bucket(initial_capacity // max(nlist, 1), base=128))
@@ -460,52 +464,86 @@ class IvfDeviceIndex(VectorIndex):
             chunk_lists=default_chunk_lists(self.nlist, data.shape[1]),
             nblocks=self._nblocks())
 
+    def counters(self) -> Dict[str, float]:
+        """The index's always-on counters, exported on /metrics: the seconds
+        searches waited for its lock, and the device milliseconds of their
+        calls (CUDA only)."""
+        return {"index_lock_wait_seconds_total": self.lock_wait_s,
+                "device_time_ms_total": self._window.ms_total if self._window else 0.0}
+
     def search_batch(self, queries: np.ndarray, k: int, mask=None, nprobe=None,
                      exhaustive: bool = False) -> List[List[SearchHit]]:
-        queries = np.asarray(queries, dtype=np.float32)
-        if queries.shape[1] != self._dim:
-            raise DimensionMismatchError(self._dim, queries.shape[1])
-        b = queries.shape[0]
-        if b == 0 or len(self) == 0:
-            return [[] for _ in range(b)]
-        with self._lock:
-            if self.centroids is None:
-                return self._overflow.search_batch(
-                    queries, k, mask=None if mask is None else mask[1])
+        """Top-k of each query over the probed lists and the overflow region.
+        The spans of ``FlatDeviceIndex``'s search: ``index`` around the
+        call, ``index.launch`` (enqueueing the probe and the selection),
+        ``index.readback`` (the host blocked on the device, and the copy
+        back), ``index.hits``; on a CUDA index the call's device window,
+        from before the upload to after the last launch."""
+        with trace_span("index"):
+            queries = np.asarray(queries, dtype=np.float32)
+            if queries.shape[1] != self._dim:
+                raise DimensionMismatchError(self._dim, queries.shape[1])
+            b = queries.shape[0]
+            if b == 0 or len(self) == 0:
+                return [[] for _ in range(b)]
             qp = pad_rows(queries, next_bucket(b, base=8))
-            qt = torch.from_numpy(qp).to(self.device)
-            if exhaustive and mask is not None and self.supports_exhaustive_mask:
-                vals, slots = self._exhaustive_topk(qt, k, mask)
-            else:
-                vals, slots = self._main_topk(qt, k, mask, nprobe=nprobe)
-            vals = vals[:b].cpu().numpy()
-            slots = slots[:b].cpu().numpy()
-            if len(self._overflow):
-                o_vals, o_idx = self._overflow.raw_topk(
-                    qp, k, mask=None if mask is None else mask[1])
-                o_hits = self._overflow.hits_from_slots(o_vals[:b], o_idx[:b])
-            else:
-                o_hits = [[] for _ in range(b)]
-        out: List[List[SearchHit]] = []
-        for row_v, row_s, extra in zip(vals, slots, o_hits):
-            hits: List[SearchHit] = []
-            for v, s in zip(row_v, row_s):
-                if not np.isfinite(v):
-                    continue
-                id_ = self._cell_to_id.get(int(s))
-                if id_ is not None:
-                    hits.append((id_, float(v)))
-            hits.extend(extra)
-            hits.sort(key=lambda h: -h[1])
-            # Dedup (an id can't be in both regions, but keep it robust).
-            seen = set()
-            uniq = []
-            for h in hits:
-                if h[0] not in seen:
-                    seen.add(h[0])
-                    uniq.append(h)
-            out.append(uniq[:k])
-        return out
+            o_mask = None if mask is None else mask[1]
+            if not self._lock.acquire(blocking=False):
+                t0 = time.perf_counter()
+                self._lock.acquire()
+                self.lock_wait_s += time.perf_counter() - t0
+            try:
+                if self.centroids is None:
+                    o_vals, o_idx = self._overflow.raw_topk(qp, k, mask=o_mask)
+                    with trace_span("index.hits"):
+                        return self._overflow.hits_from_slots(o_vals[:b], o_idx[:b])
+                if self._window is None and self.device.type == "cuda":
+                    self._window = DeviceWindow(self.device)
+                window = self._window
+                if window is not None:
+                    window.open()
+                qt = torch.from_numpy(qp).to(self.device)
+                with trace_span("index.launch"):
+                    if exhaustive and mask is not None and self.supports_exhaustive_mask:
+                        vals, slots = self._exhaustive_topk(qt, k, mask)
+                    else:
+                        vals, slots = self._main_topk(qt, k, mask, nprobe=nprobe)
+                if window is not None:
+                    window.close()
+                with trace_span("index.readback"):
+                    vals = vals[:b].cpu().numpy()
+                    slots = slots[:b].cpu().numpy()
+                if window is not None:
+                    window.settle()
+                if len(self._overflow):
+                    o_vals, o_idx = self._overflow.raw_topk(qp, k, mask=o_mask)
+                    with trace_span("index.hits"):
+                        o_hits = self._overflow.hits_from_slots(o_vals[:b], o_idx[:b])
+                else:
+                    o_hits = [[] for _ in range(b)]
+            finally:
+                self._lock.release()
+            with trace_span("index.hits"):
+                out: List[List[SearchHit]] = []
+                for row_v, row_s, extra in zip(vals, slots, o_hits):
+                    hits: List[SearchHit] = []
+                    for v, s in zip(row_v, row_s):
+                        if not np.isfinite(v):
+                            continue
+                        id_ = self._cell_to_id.get(int(s))
+                        if id_ is not None:
+                            hits.append((id_, float(v)))
+                    hits.extend(extra)
+                    hits.sort(key=lambda h: -h[1])
+                    # Dedup (an id can't be in both regions, but keep it robust).
+                    seen = set()
+                    uniq = []
+                    for h in hits:
+                        if h[0] not in seen:
+                            seen.add(h[0])
+                            uniq.append(h)
+                    out.append(uniq[:k])
+                return out
 
     # -- maintenance ----------------------------------------------------------------
 

@@ -21,7 +21,7 @@ PORT_PKG = os.path.join(REPO, "grape_vector_db_tpu_torch")
 
 # modules copied verbatim apart from the package name
 COPIES = [
-    "errors.py", "types.py", "config.py", "utils/__init__.py", "utils/buckets.py",
+    "errors.py", "types.py", "utils/__init__.py", "utils/buckets.py",
     "index/base.py", "storage/store.py", "engine/__init__.py", "engine/cache.py",
     "engine/filtering.py", "engine/sparse.py", "engine/hybrid.py",
     "engine/performance.py", "services/__init__.py",
@@ -43,6 +43,9 @@ CODEC = "import msgpack -> from grape_vector_db_tpu_torch.storage import msgpack
 # function, class, assignment or import only the port has
 TRACING = "grape_vector_db_tpu_torch.utils.tracing"
 CHANGED = [
+    # the IVF kinds' k-means training size, which the JAX package's factory
+    # does not pass
+    ("config.py", ["IndexConfig"]),
     ("engine/planner.py", [f"+from {TRACING} import trace_span",
                            "QueryEngine.vector_search_batch"]),
     ("services/metrics.py", [
