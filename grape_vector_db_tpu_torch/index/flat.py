@@ -24,6 +24,7 @@ import torch
 
 from grape_vector_db_tpu_torch.errors import DimensionMismatchError
 from grape_vector_db_tpu_torch.index.base import IndexStats, SearchHit, VectorIndex
+from grape_vector_db_tpu_torch.index.hits import hits_from_arrays
 from grape_vector_db_tpu_torch.ops.distance import scored_topk
 from grape_vector_db_tpu_torch.utils.buckets import next_bucket, pad_rows
 from grape_vector_db_tpu_torch.utils.tracing import DeviceWindow, trace_span
@@ -366,17 +367,9 @@ class FlatDeviceIndex(VectorIndex):
                 return self.hits_from_slots(vals[:b], idxs[:b])
 
     def hits_from_slots(self, vals: np.ndarray, idxs: np.ndarray) -> List[List[SearchHit]]:
-        out: List[List[SearchHit]] = []
-        for row_v, row_i in zip(vals, idxs):
-            hits: List[SearchHit] = []
-            for v, i in zip(row_v, row_i):
-                if not np.isfinite(v):
-                    continue
-                id_ = self._slot_to_id[int(i)]
-                if id_ is not None:
-                    hits.append((id_, float(v)))
-            out.append(hits)
-        return out
+        """(scores [B, k], slots [B, k]) read back -> per-query hits, leaving
+        out entries that are not finite or name a free slot."""
+        return hits_from_arrays(vals, idxs, self._slot_to_id)
 
     # -- introspection / persistence -------------------------------------------
 

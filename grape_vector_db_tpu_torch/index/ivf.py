@@ -33,6 +33,7 @@ import torch
 from grape_vector_db_tpu_torch.errors import DimensionMismatchError
 from grape_vector_db_tpu_torch.index.base import IndexStats, SearchHit, VectorIndex
 from grape_vector_db_tpu_torch.index.flat import _STORAGE_DTYPES, FlatDeviceIndex, _row_norms
+from grape_vector_db_tpu_torch.index.hits import hits_from_arrays, merge_hits
 from grape_vector_db_tpu_torch.ops.distance import prepare_queries
 from grape_vector_db_tpu_torch.ops.ivf import (NEG_INF, _pad_k, ivf_topk, make_recip,
                                                nblocks_from_counts)
@@ -138,7 +139,7 @@ class IvfDeviceIndex(VectorIndex):
         # a multiple of 128 as in the reference, so both spill alike
         self.list_cap = max(128, next_bucket(initial_capacity // max(nlist, 1), base=128))
         self.centroids: Optional[torch.Tensor] = None  # [L, D] f32
-        self._alloc(self.list_cap)
+        self._alloc_lists(self.list_cap)
         # Overflow region: exact flat index holding spill until optimize().
         self._overflow = FlatDeviceIndex(
             dimension, metric=metric, storage_dtype=storage_dtype,
@@ -148,7 +149,7 @@ class IvfDeviceIndex(VectorIndex):
         self._next_pos = np.zeros(nlist, dtype=np.int64)
         self._nblocks_cache: Optional[torch.Tensor] = None  # [L] int32; reset when _next_pos moves
         self._free: List[List[int]] = [[] for _ in range(nlist)]
-        self._cell_to_id: Dict[int, str] = {}
+        self.overflow_merge_rows = 0   # result rows the overflow's hits were merged into
         # Compact filter tier: one-entry cache of the gathered allowed rows,
         # keyed by the write epoch and the allowed cells' bytes.
         self._mutation_epoch = 0
@@ -165,6 +166,14 @@ class IvfDeviceIndex(VectorIndex):
         self.norms = self._zeros((l, cap), torch.float32)
         self.valid = self._zeros((l, cap), torch.bool)
         self.recip: Optional[torch.Tensor] = self._zeros((l, cap), torch.float32)
+
+    def _alloc_lists(self, cap: int) -> None:
+        """Empty lists of capacity ``cap`` (the planes through the ``_alloc``
+        seam, which may round ``list_cap``) and their id table: the ids by
+        cell ``list * list_cap + pos``, None where empty, read by one gather
+        a search."""
+        self._alloc(cap)
+        self._cell_ids: List[Optional[str]] = [None] * (self.nlist * self.list_cap)
 
     @property
     def dimension(self) -> int:
@@ -262,7 +271,7 @@ class IvfDeviceIndex(VectorIndex):
             list_ids[i] = lst
             positions[i] = pos
             self._id_to_cell[id_] = (lst, pos)
-            self._cell_to_id[lst * self.list_cap + pos] = id_
+            self._cell_ids[lst * self.list_cap + pos] = id_
         self._nblocks_cache = None  # _next_pos may have advanced
         self._mutation_epoch += 1
         keep = np.flatnonzero(list_ids >= 0)
@@ -310,7 +319,7 @@ class IvfDeviceIndex(VectorIndex):
                 if cell is not None:
                     lst, pos = cell
                     self._free[lst].append(pos)
-                    self._cell_to_id.pop(lst * self.list_cap + pos, None)
+                    self._cell_ids[lst * self.list_cap + pos] = None
                     cells.append(cell)
                     n += 1
             n += self._overflow.remove_batch([i for i in ids if i not in self._id_to_cell])
@@ -329,10 +338,9 @@ class IvfDeviceIndex(VectorIndex):
     def clear(self) -> None:
         with self._lock:
             self.centroids = None
-            self._alloc(self.list_cap)
+            self._alloc_lists(self.list_cap)
             self._overflow.clear()
             self._id_to_cell.clear()
-            self._cell_to_id.clear()
             self._next_pos = np.zeros(self.nlist, dtype=np.int64)
             self._nblocks_cache = None
             self._mutation_epoch += 1
@@ -371,8 +379,9 @@ class IvfDeviceIndex(VectorIndex):
             self._next_pos = np.array(next_pos, dtype=np.int64)
             self._free = [list(map(int, f)) for f in free]
             self._id_to_cell = {i: (int(l), int(p)) for i, (l, p) in id_to_cell.items()}
-            self._cell_to_id = {l * self.list_cap + p: i
-                                for i, (l, p) in self._id_to_cell.items()}
+            self._cell_ids = [None] * (self.nlist * self.list_cap)
+            for i, (l, p) in self._id_to_cell.items():
+                self._cell_ids[l * self.list_cap + p] = i
             self._nblocks_cache = None
             self._mutation_epoch += 1
             self._compact_cache = None
@@ -466,10 +475,21 @@ class IvfDeviceIndex(VectorIndex):
 
     def counters(self) -> Dict[str, float]:
         """The index's always-on counters, exported on /metrics: the seconds
-        searches waited for its lock, and the device milliseconds of their
-        calls (CUDA only)."""
+        searches waited for its lock, the device milliseconds of their
+        calls (CUDA only), and the result rows into which the overflow
+        region's hits were merged."""
         return {"index_lock_wait_seconds_total": self.lock_wait_s,
-                "device_time_ms_total": self._window.ms_total if self._window else 0.0}
+                "device_time_ms_total": self._window.ms_total if self._window else 0.0,
+                "ivf_overflow_merge_rows_total": float(self.overflow_merge_rows)}
+
+    def _hits(self, vals: np.ndarray, slots: np.ndarray, cell_ids: List[Optional[str]],
+              o_hits: List[List[SearchHit]], k: int) -> List[List[SearchHit]]:
+        """The main region's read-back (scores, cells) -> hits through the
+        id table ``cell_ids``, with the overflow region's hits merged into
+        the rows that have any."""
+        out = hits_from_arrays(vals, slots, cell_ids)
+        self.overflow_merge_rows += merge_hits(out, o_hits, k)
+        return out
 
     def search_batch(self, queries: np.ndarray, k: int, mask=None, nprobe=None,
                      exhaustive: bool = False) -> List[List[SearchHit]]:
@@ -515,35 +535,17 @@ class IvfDeviceIndex(VectorIndex):
                     slots = slots[:b].cpu().numpy()
                 if window is not None:
                     window.settle()
+                o_hits = []
                 if len(self._overflow):
                     o_vals, o_idx = self._overflow.raw_topk(qp, k, mask=o_mask)
                     with trace_span("index.hits"):
                         o_hits = self._overflow.hits_from_slots(o_vals[:b], o_idx[:b])
-                else:
-                    o_hits = [[] for _ in range(b)]
+                # the table the cells index (optimize and clear replace it)
+                cell_ids = self._cell_ids
             finally:
                 self._lock.release()
             with trace_span("index.hits"):
-                out: List[List[SearchHit]] = []
-                for row_v, row_s, extra in zip(vals, slots, o_hits):
-                    hits: List[SearchHit] = []
-                    for v, s in zip(row_v, row_s):
-                        if not np.isfinite(v):
-                            continue
-                        id_ = self._cell_to_id.get(int(s))
-                        if id_ is not None:
-                            hits.append((id_, float(v)))
-                    hits.extend(extra)
-                    hits.sort(key=lambda h: -h[1])
-                    # Dedup (an id can't be in both regions, but keep it robust).
-                    seen = set()
-                    uniq = []
-                    for h in hits:
-                        if h[0] not in seen:
-                            seen.add(h[0])
-                            uniq.append(h)
-                    out.append(uniq[:k])
-                return out
+                return self._hits(vals, slots, cell_ids, o_hits, k)
 
     # -- maintenance ----------------------------------------------------------------
 
@@ -599,7 +601,7 @@ class IvfDeviceIndex(VectorIndex):
             need = int(counts.max())
             if need > self.list_cap:
                 self.list_cap = next_bucket(int(need * 1.25) + 1, base=128)
-                self._alloc(self.list_cap)
+                self._alloc_lists(self.list_cap)
             self._place(ids, vecs)
 
     # -- introspection ---------------------------------------------------------------

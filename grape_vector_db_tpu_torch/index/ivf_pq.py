@@ -282,31 +282,13 @@ class IvfPqDeviceIndex(IvfDeviceIndex):
                 metric=self.metric, residual=self.residual)
             vals = vals[:b].cpu().numpy()
             slots = slots[:b].cpu().numpy()
+            o_hits = []
             if len(self._overflow):
                 o_vals, o_idx = self._overflow.raw_topk(
                     qp, k, mask=None if mask is None else mask[1])
                 o_hits = self._overflow.hits_from_slots(o_vals[:b], o_idx[:b])
-            else:
-                o_hits = [[] for _ in range(b)]
-        out: List[List[SearchHit]] = []
-        for row_v, row_s, extra in zip(vals, slots, o_hits):
-            hits: List[SearchHit] = []
-            for v, s_ in zip(row_v, row_s):
-                if not np.isfinite(v):
-                    continue
-                id_ = self._cell_to_id.get(int(s_))
-                if id_ is not None:
-                    hits.append((id_, float(v)))
-            hits.extend(extra)
-            hits.sort(key=lambda h: -h[1])
-            seen = set()
-            uniq = []
-            for h in hits:
-                if h[0] not in seen:
-                    seen.add(h[0])
-                    uniq.append(h)
-            out.append(uniq[:k])
-        return out
+            cell_ids = self._cell_ids
+        return self._hits(vals, slots, cell_ids, o_hits, k)
 
     def get_stats(self):
         stats = super().get_stats()

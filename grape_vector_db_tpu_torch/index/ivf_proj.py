@@ -165,7 +165,7 @@ class ProjectedInt8IvfIndex(Int8IvfDeviceIndex):
             need = int(counts.max())
             if need > self.list_cap:
                 self.list_cap = next_bucket(int(need * 1.25) + 1, base=128)
-                self._alloc(self.list_cap)
+                self._alloc_lists(self.list_cap)
             self._place(ids, pv)
 
     # -- search -------------------------------------------------------------------

@@ -38,6 +38,7 @@ import torch
 from grape_vector_db_tpu_torch.errors import DimensionMismatchError
 from grape_vector_db_tpu_torch.index.base import IndexStats, SearchHit, VectorIndex
 from grape_vector_db_tpu_torch.index.flat import _STORAGE_DTYPES, _row_norms, ship_batch
+from grape_vector_db_tpu_torch.index.hits import hits_from_arrays
 from grape_vector_db_tpu_torch.index.ivf import IvfDeviceIndex
 from grape_vector_db_tpu_torch.index.ivf_int4 import Int4IvfDeviceIndex
 from grape_vector_db_tpu_torch.index.ivf_int8 import Int8IvfDeviceIndex
@@ -629,19 +630,8 @@ class ShardedFlatIndex(VectorIndex):
                 vals, idxs = sharded_scored_topk(
                     q, self.vectors, self.norms, valid, k=k, metric=self.metric, chunk=chunk,
                     mesh=self.mesh, shard_axis=self.shard_axis, mode=self.search_mode)
-            vals = vals[:b].cpu().numpy()
-            idxs = idxs[:b].cpu().numpy()
-            out: List[List[SearchHit]] = []
-            for rv, ri in zip(vals, idxs):
-                hits = []
-                for v, i in zip(rv, ri):
-                    if not np.isfinite(v):
-                        continue
-                    id_ = self._slot_to_id[int(i)]
-                    if id_ is not None:
-                        hits.append((id_, float(v)))
-                out.append(hits)
-            return out
+            return hits_from_arrays(vals[:b].cpu().numpy(), idxs[:b].cpu().numpy(),
+                                    self._slot_to_id)
 
     # -- resharding ---------------------------------------------------------------
 

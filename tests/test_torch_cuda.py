@@ -24,7 +24,8 @@ from grape_vector_db_tpu_torch.ops import hamming as tham
 from grape_vector_db_tpu_torch.ops import ivf as tivf
 from grape_vector_db_tpu_torch.ops import segmax as tseg
 from grape_vector_db_tpu_torch.ops.int4 import quantize_int4
-from torch_parity import assert_hits_match, assert_topk_match, integer_case
+from torch_parity import (assert_hits_match, assert_topk_match, integer_case, per_hit,
+                          per_row_merge)
 
 
 @pytest.fixture
@@ -1399,3 +1400,58 @@ def test_device_window_and_device_time_come_from_the_event_pair(cuda, kind):
     line = next(v for v in text.splitlines()
                 if v.startswith("grape_vector_db_device_time_ms_total "))
     assert float(line.split()[-1]) == pytest.approx(before + spent)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flat", "binary", "ivf", "ivf_overflow"])
+def test_bulk_hits_on_the_card_equal_the_per_hit_loop(cuda, monkeypatch, kind):
+    """The hits a search builds from the arrays it read back from the card
+    equal the per-hit loop's over the same arrays, in order: the 1,000 x 10
+    batch of the benchmark's batch cells and one query at k=100, over
+    131,072 clustered 768-d rows (IVF: 64 lists of 1,024, so a quarter of
+    the rows sit in the overflow until ``optimize()``)."""
+    rng = np.random.default_rng(24)
+    n, d = 131_072, 768
+    centers = rng.standard_normal((512, d)).astype(np.float32)
+    x = centers[rng.integers(0, 512, n)] + 0.25 * rng.standard_normal((n, d)).astype(np.float32)
+    ids = [str(i) for i in range(n)]
+    q = np.concatenate([x[:8], x[rng.integers(0, n, 992)] + 0.05])
+    ivf = kind.startswith("ivf")
+    if ivf:
+        idx = IvfDeviceIndex(d, nlist=64, nprobe=16, initial_capacity=65_536, device=cuda)
+    else:
+        cls = FlatIndex if kind == "flat" else BinaryDeviceIndex
+        idx = cls(d, initial_capacity=n, device=cuda)
+    for lo in range(0, n, 16_384):
+        idx.add_batch(ids[lo:lo + 16_384], x[lo:lo + 16_384])
+    idx.remove_batch(ids[::97])
+    if kind == "ivf":
+        idx.optimize()
+    calls = []
+
+    def record(name):
+        orig = getattr(idx, name)
+
+        def wrapped(*args):
+            out = orig(*args)
+            calls.append((args, out))
+            return out
+
+        monkeypatch.setattr(idx, name, wrapped)
+
+    record("_hits" if ivf else "hits_from_slots")
+    got = [idx.search_batch(q, 10), idx.search_batch(q[:1], 100)]
+    assert len(calls) == 2
+    for g, (args, out) in zip(got, calls):
+        assert g is out
+        if ivf:
+            vals, slots, _, o_hits, k = args
+            cells = {lst * idx.list_cap + pos: i for i, (lst, pos) in idx._id_to_cell.items()}
+            want = per_row_merge(per_hit(vals, slots, cells.get),
+                                 o_hits or [[] for _ in range(len(vals))], k)
+        else:
+            vals, slots = args
+            want = per_hit(vals, slots, idx._slot_to_id.__getitem__)
+        assert g == want
+    merged = idx.counters()["ivf_overflow_merge_rows_total"] if ivf else 0
+    assert merged == (1001 if kind == "ivf_overflow" else 0)

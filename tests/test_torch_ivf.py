@@ -33,7 +33,7 @@ from grape_vector_db_tpu_torch import (Condition, Document, Filter, SearchReques
 from grape_vector_db_tpu_torch.db import build_index
 from grape_vector_db_tpu_torch.index import (Int4IvfDeviceIndex, Int8IvfDeviceIndex,
                                              IvfDeviceIndex)
-from torch_parity import assert_hits_match, to_np
+from torch_parity import assert_hits_match, cell_map, to_np
 
 torch.set_num_threads(2)
 
@@ -77,7 +77,7 @@ def _state(j) -> dict:
 
 def _assert_same_bookkeeping(j, t):
     assert t.list_cap == j.list_cap
-    assert t._id_to_cell == j._id_to_cell and t._cell_to_id == j._cell_to_id
+    assert t._id_to_cell == j._id_to_cell and cell_map(t) == j._cell_to_id
     assert t._free == j._free
     np.testing.assert_array_equal(t._next_pos, j._next_pos)
     assert t._overflow._id_to_slot == j._overflow._id_to_slot

@@ -150,8 +150,11 @@ def test_the_ivf_search_records_its_spans_under_a_capture(loaded):
         assert all(s.parent_id == index.span_id for s in kids)
         assert all(a.t1_ns <= b.t0_ns for a, b in zip(kids, kids[1:]))
         assert index.t0_ns <= kids[0].t0_ns and kids[-1].t1_ns <= index.t1_ns
-    assert set(db.index.counters()) == {"index_lock_wait_seconds_total",
-                                       "device_time_ms_total"}
+    counters = db.index.counters()
+    assert set(counters) == {"index_lock_wait_seconds_total", "device_time_ms_total",
+                             "ivf_overflow_merge_rows_total"}
+    # optimize() absorbed the load's spill: no row took the overflow merge
+    assert counters["ivf_overflow_merge_rows_total"] == 0
 
 
 def test_an_untrained_ivf_search_records_the_overflows_spans():

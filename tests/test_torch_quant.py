@@ -40,7 +40,8 @@ from grape_vector_db_tpu_torch.index import (BinaryDeviceIndex, Int8DeviceIndex,
 from grape_vector_db_tpu_torch.index.ivf_proj import _fit_projection
 from grape_vector_db_tpu_torch.ops import int8 as t_int8
 from grape_vector_db_tpu_torch.ops import pq as t_pq
-from torch_parity import assert_hits_match, assert_topk_match, assert_two_stage_match, to_np
+from torch_parity import (assert_hits_match, assert_topk_match, assert_two_stage_match,
+                          cell_map, to_np)
 
 torch.set_num_threads(2)
 
@@ -295,7 +296,7 @@ def test_ivf_pq_matches_jax_on_carried_state(rng, resident, residual):
     assert j.codebooks is not None and len(j._overflow) > 0
     t = IvfPqDeviceIndex(D, device="cpu", **kw)
     t.load_state(**_ivfpq_state(j))
-    assert t._cell_to_id == j._cell_to_id and not t.supports_exhaustive_mask
+    assert cell_map(t) == j._cell_to_id and not t.supports_exhaustive_mask
     q = np.concatenate([x[:3] + 0.05, _clustered(rng, 3)])
 
     def check(mask_ids=None):
@@ -314,7 +315,7 @@ def test_ivf_pq_matches_jax_on_carried_state(rng, resident, residual):
     assert t.remove_batch(doomed) == j.remove_batch(doomed)
     for idx in (j, t):
         idx.add_batch(ids[1300:], x[1300:])     # encoded with the carried codebooks
-    assert t._cell_to_id == j._cell_to_id
+    assert cell_map(t) == j._cell_to_id
     live = np.asarray(j.valid)
     np.testing.assert_array_equal(to_np(t.codes)[live], np.asarray(j.codes)[live])
     got = check()
@@ -418,7 +419,7 @@ def test_projected_ivf_matches_jax_on_carried_state(rng, jcls, tcls):
     for idx in (j, t):
         idx.remove_batch(ids[:30])
         idx.add_batch(ids[1200:], x[1200:])
-    assert t._cell_to_id == j._cell_to_id
+    assert cell_map(t) == j._cell_to_id
     assert_hits_match(t.search_batch(q, 10), j.search_batch(q, 10), 3e-3)
     np.testing.assert_allclose(t.get_vector("d1250"), np.asarray(j.get_vector("d1250")),
                                rtol=0, atol=1e-4)

@@ -66,6 +66,45 @@ def assert_topk_match(vals, ids, ref_vals, ref_ids, tol: float) -> None:
                 f"score {kth}: {sorted(got)} vs {sorted(want)}")
 
 
+def cell_map(index) -> dict:
+    """An IVF index's cell -> id mapping (cell = list * list_cap + pos), read
+    from the port's id table by cell in the form of the JAX index's dict."""
+    return {c: i for c, i in enumerate(index._cell_ids) if i is not None}
+
+
+def per_hit(vals, slots, id_of):
+    """The per-hit loop ``index.hits.hits_from_arrays`` replaced, as its
+    plain version: a numpy scalar, ``np.isfinite`` and an id lookup a hit."""
+    out = []
+    for row_v, row_s in zip(vals, slots):
+        hits = []
+        for v, s in zip(row_v, row_s):
+            if not np.isfinite(v):
+                continue
+            id_ = id_of(int(s))
+            if id_ is not None:
+                hits.append((id_, float(v)))
+        out.append(hits)
+    return out
+
+
+def per_row_merge(rows, extra, k):
+    """The merge every IVF row took before ``index.hits.merge_hits``: extend,
+    stable sort by -score, dedup, the first k."""
+    out = []
+    for hits, more in zip(rows, extra):
+        hits = hits + more
+        hits.sort(key=lambda h: -h[1])
+        seen = set()
+        uniq = []
+        for h in hits:
+            if h[0] not in seen:
+                seen.add(h[0])
+                uniq.append(h)
+        out.append(uniq[:k])
+    return out
+
+
 def assert_hits_match(hits, ref_hits, tol: float) -> None:
     """Lists of (id, score) per query, as the index and planner return them."""
     assert len(hits) == len(ref_hits)
