@@ -202,7 +202,7 @@ class BinaryDeviceIndex(FlatDeviceIndex):
 
     def raw_topk(self, queries: np.ndarray, k: int,
                  mask: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
-        vals, idxs = self._search_device(queries, k, mask, self._binary_topk)
+        vals, idxs = self._device_call(lambda q, m: self._binary_topk(q, m, k), queries, mask)
         if self.keep_vectors:
             return vals, idxs
         if self.prescan == "asym":
@@ -268,19 +268,13 @@ class BinaryDeviceIndex(FlatDeviceIndex):
     def hamming_only_topk(self, queries: np.ndarray, k: int) -> List[List[SearchHit]]:
         """Stage-1-only search (similarity = 1 - d/dim), the reference's
         pure-Hamming mode."""
-        queries = np.asarray(queries, dtype=np.float32)
-        if queries.shape[1] != self._dim:
-            raise DimensionMismatchError(self._dim, queries.shape[1])
-        b = queries.shape[0]
-        if b == 0 or not self._id_to_slot:
+        qp, b = self._padded_queries(queries)
+        if qp is None:
             return [[] for _ in range(b)]
-        bb = next_bucket(b, base=8)
-        with self._lock:
-            q = torch.from_numpy(pad_rows(queries, bb)).to(self.device)
-            dists, idxs = hamming_topk(pack_bits(q, self.threshold), self.codes, self.valid, k=k,
-                                       chunk=self._scan_chunk(), impl=self.hamming_impl)
-            dists = dists[:b].cpu().numpy()
-            idxs = idxs[:b].cpu().numpy()
+        dists, idxs = self._device_call(
+            lambda q, _: hamming_topk(pack_bits(q, self.threshold), self.codes, self.valid, k=k,
+                                      chunk=self._scan_chunk(), impl=self.hamming_impl),
+            qp, rows=b)
         sims = 1.0 - dists.astype(np.float64) / float(self._dim)
         sims = np.where(dists >= INVALID_DIST, -np.inf, sims)
         return self.hits_from_slots(sims, idxs)

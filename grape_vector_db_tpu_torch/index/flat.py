@@ -15,19 +15,18 @@ static shapes, so ``index_copy_`` writes only the real rows.
 
 from __future__ import annotations
 
-import threading
-import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from grape_vector_db_tpu_torch.errors import DimensionMismatchError
 from grape_vector_db_tpu_torch.index.base import IndexStats, SearchHit, VectorIndex
+from grape_vector_db_tpu_torch.index.device_call import DeviceCalls
 from grape_vector_db_tpu_torch.index.hits import hits_from_arrays
 from grape_vector_db_tpu_torch.ops.distance import scored_topk
-from grape_vector_db_tpu_torch.utils.buckets import next_bucket, pad_rows
-from grape_vector_db_tpu_torch.utils.tracing import DeviceWindow, trace_span
+from grape_vector_db_tpu_torch.utils.buckets import next_bucket
+from grape_vector_db_tpu_torch.utils.tracing import trace_span
 
 __all__ = ["FlatDeviceIndex", "FlatIndex", "grow_rows", "ship_batch"]
 
@@ -60,7 +59,7 @@ def _row_norms(vecs: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=1))
 
 
-class FlatDeviceIndex(VectorIndex):
+class FlatDeviceIndex(DeviceCalls, VectorIndex):
     """Exact device-scan index (recall = 1.0 by construction)."""
 
     kind = "flat"
@@ -92,9 +91,7 @@ class FlatDeviceIndex(VectorIndex):
         self._initial_capacity = initial_capacity
         self._growth_factor = growth_factor
         self.device = torch.device(device)
-        self._lock = threading.RLock()
-        self.lock_wait_s = 0.0   # seconds searches waited for the lock
-        self._window: Optional[DeviceWindow] = None   # made at a CUDA index's first search
+        self._init_device_calls()
         self._alloc(initial_capacity)
         # Host id <-> slot bookkeeping.
         self._id_to_slot: Dict[str, int] = {}
@@ -293,46 +290,6 @@ class FlatDeviceIndex(VectorIndex):
             return mask_from_allowed(set(allowed_ids), self._slot_to_id,
                                      self._id_to_slot)
 
-    def counters(self) -> Dict[str, float]:
-        """The index's always-on counters, exported on /metrics: the seconds
-        searches waited for its lock, and the device milliseconds of their
-        calls (CUDA only)."""
-        return {"index_lock_wait_seconds_total": self.lock_wait_s,
-                "device_time_ms_total": self._window.ms_total if self._window else 0.0}
-
-    def _search_device(self, queries: np.ndarray, k: int, mask: Optional[np.ndarray],
-                       launch: Callable) -> Tuple[np.ndarray, np.ndarray]:
-        """``launch(q, mask, k)`` over the queries and mask uploaded to the
-        device, its two result tensors read back as numpy, under the index
-        lock (see ``raw_topk``), whose wait is counted. The spans
-        ``index.launch`` and ``index.readback`` (the host blocked on the
-        device, and the copy back); on a CUDA index the call's device
-        window, from before the upload to after the last launch."""
-        if not self._lock.acquire(blocking=False):
-            t0 = time.perf_counter()
-            self._lock.acquire()
-            self.lock_wait_s += time.perf_counter() - t0
-        try:
-            if self._window is None and self.device.type == "cuda":
-                self._window = DeviceWindow(self.device)
-            window = self._window
-            if window is not None:
-                window.open()
-            q = torch.from_numpy(np.asarray(queries, dtype=np.float32)).to(self.device)
-            m = None if mask is None else torch.from_numpy(
-                np.asarray(mask, dtype=bool)).to(self.device)
-            with trace_span("index.launch"):
-                vals, idxs = launch(q, m, k)
-            if window is not None:
-                window.close()
-            with trace_span("index.readback"):
-                out = vals.cpu().numpy(), idxs.cpu().numpy()
-            if window is not None:
-                window.settle()
-            return out
-        finally:
-            self._lock.release()
-
     def _exact_topk(self, q: torch.Tensor, mask: Optional[torch.Tensor],
                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         return scored_topk(q, self.vectors, self.norms, self.valid, k=k, metric=self.metric,
@@ -346,23 +303,15 @@ class FlatDeviceIndex(VectorIndex):
 
         Holds the index lock: a write between reading the tensors and the
         scan would mix two states of the index."""
-        return self._search_device(queries, k, mask, self._exact_topk)
+        return self._device_call(lambda q, m: self._exact_topk(q, m, k), queries, mask)
 
     def search_batch(self, queries: np.ndarray, k: int,
                      mask: Optional[np.ndarray] = None) -> List[List[SearchHit]]:
         with trace_span("index"):
-            queries = np.asarray(queries, dtype=np.float32)
-            if queries.ndim != 2:
-                raise ValueError("queries must be [B, dim]")
-            if queries.shape[1] != self._dim:
-                raise DimensionMismatchError(self._dim, queries.shape[1])
-            b = queries.shape[0]
-            if b == 0 or not self._id_to_slot:
+            qp, b = self._padded_queries(queries)
+            if qp is None:
                 return [[] for _ in range(b)]
-            # The padded batch is what the kernel routing reads (as in the
-            # reference), so keep the same bucket.
-            bb = next_bucket(b, base=8)
-            vals, idxs = self.raw_topk(pad_rows(queries, bb), k, mask=mask)
+            vals, idxs = self.raw_topk(qp, k, mask=mask)
             with trace_span("index.hits"):
                 return self.hits_from_slots(vals[:b], idxs[:b])
 

@@ -83,7 +83,7 @@ class Int8DeviceIndex(FlatDeviceIndex):
 
     def raw_topk(self, queries: np.ndarray, k: int,
                  mask: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
-        return self._search_device(queries, k, mask, self._int8_topk)
+        return self._device_call(lambda q, m: self._int8_topk(q, m, k), queries, mask)
 
     def get_stats(self):
         stats = super().get_stats()

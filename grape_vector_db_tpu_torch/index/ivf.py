@@ -23,8 +23,6 @@ padding slots).
 
 from __future__ import annotations
 
-import threading
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,14 +30,15 @@ import torch
 
 from grape_vector_db_tpu_torch.errors import DimensionMismatchError
 from grape_vector_db_tpu_torch.index.base import IndexStats, SearchHit, VectorIndex
+from grape_vector_db_tpu_torch.index.device_call import DeviceCalls
 from grape_vector_db_tpu_torch.index.flat import _STORAGE_DTYPES, FlatDeviceIndex, _row_norms
 from grape_vector_db_tpu_torch.index.hits import hits_from_arrays, merge_hits
 from grape_vector_db_tpu_torch.ops.distance import prepare_queries
 from grape_vector_db_tpu_torch.ops.ivf import (NEG_INF, _pad_k, ivf_topk, make_recip,
                                                nblocks_from_counts)
 from grape_vector_db_tpu_torch.ops.kmeans import assign_clusters, kmeans
-from grape_vector_db_tpu_torch.utils.buckets import next_bucket, pad_rows
-from grape_vector_db_tpu_torch.utils.tracing import DeviceWindow, trace_span
+from grape_vector_db_tpu_torch.utils.buckets import next_bucket
+from grape_vector_db_tpu_torch.utils.tracing import trace_span
 
 __all__ = ["IvfDeviceIndex"]
 
@@ -91,7 +90,7 @@ def _gather_topk(queries, centroids, vecs, norms, valid, k: int, nprobe: int,
     return _pad_k(vals, torch.gather(gslot, 1, idx), k)
 
 
-class IvfDeviceIndex(VectorIndex):
+class IvfDeviceIndex(DeviceCalls, VectorIndex):
     kind = "ivf"
     supports_mask = True
     # A probe visits nprobe lists; a mask folded into it is exact only over
@@ -132,9 +131,7 @@ class IvfDeviceIndex(VectorIndex):
         self.train_size = train_size
         self.kmeans_iters = kmeans_iters
         self.device = torch.device(device)
-        self._lock = threading.RLock()
-        self.lock_wait_s = 0.0   # seconds searches waited for the lock
-        self._window: Optional[DeviceWindow] = None   # made at a CUDA index's first search
+        self._init_device_calls()
         # list capacity starts small and doubles on overflow pressure; kept
         # a multiple of 128 as in the reference, so both spill alike
         self.list_cap = max(128, next_bucket(initial_capacity // max(nlist, 1), base=128))
@@ -474,12 +471,9 @@ class IvfDeviceIndex(VectorIndex):
             nblocks=self._nblocks())
 
     def counters(self) -> Dict[str, float]:
-        """The index's always-on counters, exported on /metrics: the seconds
-        searches waited for its lock, the device milliseconds of their
-        calls (CUDA only), and the result rows into which the overflow
-        region's hits were merged."""
-        return {"index_lock_wait_seconds_total": self.lock_wait_s,
-                "device_time_ms_total": self._window.ms_total if self._window else 0.0,
+        """The device-call counters, and the result rows into which the
+        overflow region's hits were merged."""
+        return {**super().counters(),
                 "ivf_overflow_merge_rows_total": float(self.overflow_merge_rows)}
 
     def _hits(self, vals: np.ndarray, slots: np.ndarray, cell_ids: List[Optional[str]],
@@ -495,46 +489,24 @@ class IvfDeviceIndex(VectorIndex):
                      exhaustive: bool = False) -> List[List[SearchHit]]:
         """Top-k of each query over the probed lists and the overflow region.
         The spans of ``FlatDeviceIndex``'s search: ``index`` around the
-        call, ``index.launch`` (enqueueing the probe and the selection),
-        ``index.readback`` (the host blocked on the device, and the copy
-        back), ``index.hits``; on a CUDA index the call's device window,
-        from before the upload to after the last launch."""
+        call, the main region's device call (``index.launch`` enqueueing the
+        probe and the selection, ``index.readback``), ``index.hits``."""
         with trace_span("index"):
-            queries = np.asarray(queries, dtype=np.float32)
-            if queries.shape[1] != self._dim:
-                raise DimensionMismatchError(self._dim, queries.shape[1])
-            b = queries.shape[0]
-            if b == 0 or len(self) == 0:
+            qp, b = self._padded_queries(queries)
+            if qp is None:
                 return [[] for _ in range(b)]
-            qp = pad_rows(queries, next_bucket(b, base=8))
             o_mask = None if mask is None else mask[1]
-            if not self._lock.acquire(blocking=False):
-                t0 = time.perf_counter()
-                self._lock.acquire()
-                self.lock_wait_s += time.perf_counter() - t0
-            try:
+            with self._search_lock():
                 if self.centroids is None:
                     o_vals, o_idx = self._overflow.raw_topk(qp, k, mask=o_mask)
                     with trace_span("index.hits"):
                         return self._overflow.hits_from_slots(o_vals[:b], o_idx[:b])
-                if self._window is None and self.device.type == "cuda":
-                    self._window = DeviceWindow(self.device)
-                window = self._window
-                if window is not None:
-                    window.open()
-                qt = torch.from_numpy(qp).to(self.device)
-                with trace_span("index.launch"):
-                    if exhaustive and mask is not None and self.supports_exhaustive_mask:
-                        vals, slots = self._exhaustive_topk(qt, k, mask)
-                    else:
-                        vals, slots = self._main_topk(qt, k, mask, nprobe=nprobe)
-                if window is not None:
-                    window.close()
-                with trace_span("index.readback"):
-                    vals = vals[:b].cpu().numpy()
-                    slots = slots[:b].cpu().numpy()
-                if window is not None:
-                    window.settle()
+                if exhaustive and mask is not None and self.supports_exhaustive_mask:
+                    vals, slots = self._device_call(
+                        lambda q, _: self._exhaustive_topk(q, k, mask), qp, rows=b)
+                else:
+                    vals, slots = self._device_call(
+                        lambda q, _: self._main_topk(q, k, mask, nprobe=nprobe), qp, rows=b)
                 o_hits = []
                 if len(self._overflow):
                     o_vals, o_idx = self._overflow.raw_topk(qp, k, mask=o_mask)
@@ -542,8 +514,6 @@ class IvfDeviceIndex(VectorIndex):
                         o_hits = self._overflow.hits_from_slots(o_vals[:b], o_idx[:b])
                 # the table the cells index (optimize and clear replace it)
                 cell_ids = self._cell_ids
-            finally:
-                self._lock.release()
             with trace_span("index.hits"):
                 return self._hits(vals, slots, cell_ids, o_hits, k)
 

@@ -12,28 +12,28 @@ candidates against a resident plane. Knobs:
   codes only, the ranking is pure ADC, and ``get_vector`` / ``get_all``
   decode rows from the codes.
 
-Until the codebooks are trained, search is the parent's exact IVF probe
-(the ``bf16`` config) or the overflow region's exact scan. The trained path
-has no kernel of its own (the reference's is an XLA gather), and the
-exhaustive filter tiers do not apply (``supports_exhaustive_mask`` False).
+Search is ``IvfDeviceIndex.search_batch`` with the ADC scan in its
+``_main_topk`` seam. Until the codebooks are trained, that is the parent's
+exact IVF probe (the ``bf16`` config) or the overflow region's exact scan.
+The trained path has no kernel of its own (the reference's is an XLA
+gather), and the exhaustive filter tiers do not apply
+(``supports_exhaustive_mask`` False).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
-from grape_vector_db_tpu_torch.errors import DimensionMismatchError
-from grape_vector_db_tpu_torch.index.base import SearchHit
 from grape_vector_db_tpu_torch.index.ivf import IvfDeviceIndex, _from_numpy
 from grape_vector_db_tpu_torch.ops.distance import prepare_queries
 from grape_vector_db_tpu_torch.ops.int8 import quantize_int8
 from grape_vector_db_tpu_torch.ops.ivf import _pad_k
 from grape_vector_db_tpu_torch.ops.kmeans import assign_clusters
 from grape_vector_db_tpu_torch.ops.pq import encode_pq, train_pq
-from grape_vector_db_tpu_torch.utils.buckets import next_bucket, pad_rows
+from grape_vector_db_tpu_torch.utils.buckets import next_bucket
 
 __all__ = ["IvfPqDeviceIndex"]
 
@@ -254,41 +254,22 @@ class IvfPqDeviceIndex(IvfDeviceIndex):
 
     # -- search -----------------------------------------------------------------
 
-    def search_batch(self, queries: np.ndarray, k: int, mask=None, nprobe=None,
-                     exhaustive: bool = False) -> List[List[SearchHit]]:
-        queries = np.asarray(queries, dtype=np.float32)
-        if queries.shape[1] != self._dim:
-            raise DimensionMismatchError(self._dim, queries.shape[1])
-        b = queries.shape[0]
-        if b == 0 or len(self) == 0:
-            return [[] for _ in range(b)]
-        with self._lock:
-            if self.centroids is None or self.codebooks is None:
-                return super().search_batch(queries, k, mask=mask, nprobe=nprobe)
-            qp = pad_rows(queries, next_bucket(b, base=8))
-            if self.resident == "none":
-                rk, rvecs, rscales = 0, None, None
-            else:
-                rk = next_bucket(max(self.rescore_k, k), base=64)
-                rvecs = self.vecs if self.resident == "bf16" else self.codes8
-                rscales = self.scales8
-            # the filter mask ANDs into cell validity before the ADC scan, so
-            # the code prescan and the rescore see only allowed rows
-            valid = self.valid if mask is None else self.valid & self._mask_tensor(mask)
-            vals, slots = _ivfpq_topk(
-                torch.from_numpy(qp).to(self.device), self.centroids, self.codebooks,
-                self.codes, rvecs, rscales, self.norms, valid,
-                nprobe=min(nprobe or self.nprobe, self.nlist), rescore_k=rk, k=k,
-                metric=self.metric, residual=self.residual)
-            vals = vals[:b].cpu().numpy()
-            slots = slots[:b].cpu().numpy()
-            o_hits = []
-            if len(self._overflow):
-                o_vals, o_idx = self._overflow.raw_topk(
-                    qp, k, mask=None if mask is None else mask[1])
-                o_hits = self._overflow.hits_from_slots(o_vals[:b], o_idx[:b])
-            cell_ids = self._cell_ids
-        return self._hits(vals, slots, cell_ids, o_hits, k)
+    def _main_topk(self, qp: torch.Tensor, k: int, mask, nprobe=None):
+        if self.codebooks is None:
+            return super()._main_topk(qp, k, mask, nprobe=nprobe)   # exact until trained
+        if self.resident == "none":
+            rk, rvecs, rscales = 0, None, None
+        else:
+            rk = next_bucket(max(self.rescore_k, k), base=64)
+            rvecs = self.vecs if self.resident == "bf16" else self.codes8
+            rscales = self.scales8
+        # the filter mask ANDs into cell validity before the ADC scan, so
+        # the code prescan and the rescore see only allowed rows
+        valid = self.valid if mask is None else self.valid & self._mask_tensor(mask)
+        return _ivfpq_topk(
+            qp, self.centroids, self.codebooks, self.codes, rvecs, rscales, self.norms, valid,
+            nprobe=min(nprobe or self.nprobe, self.nlist), rescore_k=rk, k=k,
+            metric=self.metric, residual=self.residual)
 
     def get_stats(self):
         stats = super().get_stats()

@@ -135,7 +135,7 @@ class PqDeviceIndex(FlatDeviceIndex):
                  mask: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
         if self.codebooks is None:
             return super().raw_topk(queries, k, mask=mask)  # exact until trained
-        return self._search_device(queries, k, mask, self._pq_topk)
+        return self._device_call(lambda q, m: self._pq_topk(q, m, k), queries, mask)
 
     def get_stats(self):
         stats = super().get_stats()

@@ -4,8 +4,9 @@ A small corpus of the benchmark's recipe goes through ``VectorDatabase`` with
 ``kind="ivf"``, the ingest and one ``optimize()``, as the benchmark's load
 does, and its answers are held to ``portbench/reference/ivf.py``: within the
 cell's limits as they stand, the exact top k once every list is probed, and
-flagged where a fault is planted. Also: the IVF search's spans and counters,
-and ``IndexConfig.ivf_train_size`` reaching every IVF kind.
+flagged where a fault is planted. Also: the IVF search's spans and counters on
+``ivf`` and the kinds that reach it through its seams, its query checks, and
+``IndexConfig.ivf_train_size`` reaching every IVF kind.
 """
 
 import os
@@ -131,8 +132,34 @@ def test_the_fp8_control_fails_on_score_gap(loaded):
     assert checks["score_gap"]["value"] > checks["score_gap"]["limit"], checks
 
 
-def test_the_ivf_search_records_its_spans_under_a_capture(loaded):
-    db, _, queries = loaded
+#: A small clustered corpus for the kinds that reach IVF's search through its
+#: seams: ``ivf_pq`` (the ADC scan in ``_main_topk``) and ``ivf_int8_proj``
+#: (its projection in front of ``search_batch``), whose 128-aligned
+#: projection needs more than the benchmark's 128 dimensions.
+SEAM_DATA = {"rows": 4096, "dim": 256, "metric": "cosine", "centres": 32, "noise": 0.25}
+
+
+@pytest.fixture(scope="module", params=["ivf", "ivf_pq", "ivf_int8_proj"])
+def trained(request, loaded):
+    """A trained database of each kind and its held-out queries: ``ivf`` is
+    the benchmark's load; the others ingest ``SEAM_DATA`` and optimize."""
+    if request.param == "ivf":
+        yield loaded[0], loaded[2]
+        return
+    corpus = data.make_corpus(SEAM_DATA, SEED, "cpu")
+    queries = data.make_queries(corpus, SEAM_DATA, {"query_set": 64}, SEED)
+    db = VectorDatabase(config=kind_config(request.param), device="cpu")
+    runner.ingest(db, corpus.x.numpy(), 1024)
+    db.optimize()
+    assert db.index.is_trained and db.index.get_stats().extra["overflow"] == 0
+    if request.param == "ivf_pq":
+        assert db.index.codebooks is not None    # the ADC scan, not the exact probe
+    yield db, queries
+    db.close()
+
+
+def test_the_ivf_search_records_its_spans_under_a_capture(trained):
+    db, queries = trained
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         for lo in (0, 8, 16):
             db.vector_search_batch(queries[lo:lo + 8], K)
@@ -189,8 +216,8 @@ class FakeWindow:
         self.ms_total += 1.5
 
 
-def test_metrics_text_carries_the_ivf_counters(loaded):
-    db, _, queries = loaded
+def test_metrics_text_carries_the_ivf_counters(trained):
+    db, queries = trained
     db.index.lock_wait_s = 0.0
     window = db.index._window = FakeWindow()
     held, release = threading.Event(), threading.Event()
@@ -214,6 +241,14 @@ def test_metrics_text_carries_the_ivf_counters(loaded):
     assert window.calls == ["open", "close", "settle"] * 2
     assert got["grape_vector_db_device_time_ms_total"] == 3.0
     assert 0.05 <= got["grape_vector_db_index_lock_wait_seconds_total"] < 30
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf", "ivf_int8", "ivf_pq"])
+def test_a_1d_query_raises_a_value_error(kind):
+    index = build_index(kind_config(kind), device="cpu")
+    index.add_batch(["a"], np.ones((1, 256), np.float32))
+    with pytest.raises(ValueError, match=r"\[B, dim\]"):
+        index.search_batch(np.ones(256, np.float32), K)
 
 
 IVF_KINDS = ["ivf", "ivf_int8", "ivf_int4", "ivf_pq", "ivf_int8_proj", "ivf_int4_proj",
